@@ -1,11 +1,11 @@
 // Native host-side kernels for pyracecarsimulator_tpu.
 //
 // The reference implements its EDT, ray-march, and precompute tiers in C++
-// behind Cython (SURVEY.md §2c); this library is the TPU framework's native
+// behind Cython (SURVEY.md §2c); this library is this framework's native
 // tier for the same *host-side* jobs: init-time map compilation (EDT,
 // boundary-segment extraction) and the CPU oracle raycaster used as the
-// parity/baseline reference. The device hot path is XLA/Pallas (ops/), not
-// this file.
+// parity/baseline reference. The device hot path is XLA (ops/), not this
+// file.
 //
 // Exposed via a C ABI consumed with ctypes (_native/loader.py). Built by
 // csrc/Makefile into pyracecarsimulator_tpu/_native/libracecar_native.so.

@@ -12,10 +12,10 @@ FROM a map; this inverts the sensor to recover the map.
     python examples/demo_mapping.py --map levine    # full 1300x1300 track
     python examples/demo_mapping.py --fast          # production hybrid path
 
-``--fast`` runs the PRODUCTION ∂range/∂map path instead (VERDICT r3 #3):
+``--fast`` runs the PRODUCTION ∂range/∂map path instead:
 ``make_scan_fn(bundle, map_grad=True)`` — sector-culled exact forward +
-implicit-function map cotangent (1.66e7 rays/s fwd+bwd on v5e, 385x the
-soft-EDT/bilinear chain above). Task: full levine-scale map CORRECTION —
+implicit-function map cotangent (much faster than the soft-EDT/bilinear
+chain above). Task: full levine-scale map CORRECTION —
 start from a miscalibrated prior (true walls dilated 2 cells = every
 surface 0.10 m too close), observe exact scans, and recover the true
 surface by relinearized Gauss-Newton steps where each step's per-cell

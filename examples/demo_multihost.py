@@ -1,9 +1,9 @@
-"""Demo: 65k agents across a TPU pod slice (BASELINE.json config 5).
+"""Demo: 65k agents across a multi-host GPU cluster (BASELINE.json config 5).
 
 One process per host; each joins the global mesh and owns a slab of
 agents. Run on every host of the slice:
 
-    python examples/demo_multihost.py            # real pod
+    python examples/demo_multihost.py            # on every host
 
 or simulate 8 devices on CPU:
 
@@ -28,7 +28,8 @@ def main():
     ap.add_argument("--beams", type=int, default=1080)
     ap.add_argument("--beams-axis", type=int, default=1,
                     help="devices on the beam (sequence) axis; must divide "
-                         "local device count so collectives stay on ICI")
+                         "local device count so collectives stay on one "
+                         "host's NVLink")
     args = ap.parse_args()
 
     import jax
@@ -47,8 +48,7 @@ def main():
               f"{jax.process_count()} processes")
 
     bundle = rc.build_sim("levine", scan=ScanParams(num_beams=args.beams))
-    step = make_sharded_step(mesh, bundle, with_noise=False,
-                             compiler_opts=False)
+    step = make_sharded_step(mesh, bundle, with_noise=False)
 
     t = bundle.track
     edf = np.asarray(t.edf)[: t.height, : t.width]

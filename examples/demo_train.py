@@ -6,8 +6,8 @@ value_and_grad's a T-step closed-loop rollout of the FULL production
 step (smooth-steering input processing -> ST dynamics -> sector-culled
 1080-beam raycast -> TTC latch) and applies an optax Adam update — the
 capability the reference (forward-only simulation, SURVEY.md §2b)
-cannot offer, at TPU scale (v5e: levine 2.25e6 trained agent-steps/s,
-BASELINE.md round 5).
+cannot offer, at thousands of agents per device (rate on the card: not
+measured yet; scripts/bench_train.py measures it).
 
 The objective rewards forward clearance: the policy learns to steer
 toward open space. Collisions (latched cars) show up directly in the

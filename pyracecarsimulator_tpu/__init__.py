@@ -1,10 +1,10 @@
-"""pyracecarsimulator_tpu: TPU-native differentiable 2D racecar simulator.
+"""pyracecarsimulator_tpu: differentiable, batched 2D racecar simulator.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-felrock/PyRacecarSimulator (see SURVEY.md): 1080-beam 2D lidar scan
-simulation against occupancy-grid maps, single-track vehicle dynamics, TTC
-collision checking — rewritten TPU-first so thousands of cars step and scan
-in lockstep under jit/vmap/shard_map, differentiable end-to-end.
+A JAX/XLA framework with the capabilities of felrock/PyRacecarSimulator
+(see SURVEY.md): 1080-beam 2D lidar scan simulation against occupancy-grid
+maps, single-track vehicle dynamics, TTC collision checking — rewritten so
+thousands of cars step and scan in lockstep on one accelerator under
+jit/vmap/shard_map, differentiable end-to-end.
 """
 
 from .config import CarParams, ScanParams, SimParams

@@ -3,8 +3,10 @@
 Mirrors the reference's native tier (SURVEY.md §2c) without a
 Cython/pybind dependency: plain C ABI + ctypes. Every entry point has a
 NumPy fallback in the package, so the library is an accelerator, never a
-requirement. Build on demand with ``python -m
-pyracecarsimulator_tpu._native.loader --build`` or ``make -C csrc``.
+requirement. The library is not shipped: it is built from ``csrc/`` into
+this directory (gitignored) on first use, or ahead of time with ``python
+-m pyracecarsimulator_tpu._native.loader --build`` or ``make -C csrc``.
+Hosts without ``g++`` use the NumPy fallbacks.
 """
 
 from __future__ import annotations
@@ -66,10 +68,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.rc_raycast_segments.restype = None
     lib.rc_extract_segments.argtypes = [u8, i, i, f64, i]
     lib.rc_extract_segments.restype = i
-    if hasattr(lib, "rc_sector_membership"):   # older cached .so: fallback
-        lib.rc_sector_membership.argtypes = [f64, i, i, i, i, d, d, d, d,
-                                             d, d, u8]
-        lib.rc_sector_membership.restype = i
+    lib.rc_sector_membership.argtypes = [f64, i, i, i, i, d, d, d, d,
+                                         d, d, u8]
+    lib.rc_sector_membership.restype = i
     _lib = lib
     return _lib
 
@@ -134,9 +135,9 @@ def sector_membership(segs: np.ndarray, nr: int, nc: int, ns: int,
                       block_half: float) -> Optional[np.ndarray]:
     """(nr*nc*ns, K) bool cull membership (maps/sectors._membership,
     native tier: ~10x the NumPy broadcast on berlin-class builds), or
-    None if the library (or this entry point) is unavailable."""
+    None if the library is unavailable."""
     lib = _load()
-    if lib is None or not hasattr(lib, "rc_sector_membership"):
+    if lib is None:
         return None
     s = np.ascontiguousarray(segs, np.float64)
     k = len(s)

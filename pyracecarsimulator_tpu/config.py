@@ -1,4 +1,4 @@
-"""Static configuration pytrees for the TPU-native racecar simulator.
+"""Static configuration pytrees for the racecar simulator.
 
 Reference parity: mirrors the parameter surface of the reference simulator's
 ``CarParams`` / scan-simulator constructor arguments (see SURVEY.md §2a rows
@@ -91,7 +91,7 @@ class ScanParams:
     theta_discretization: Any = 2000  # sin/cos table buckets (reference parity
     #                                  mode; exact trig is the default path)
     max_range: Any = 10.0            # range clamp [m]
-    # TPU-native additions (no reference equivalent): static trip count for
+    # Additions with no reference equivalent: static trip count for
     # the fixed-iteration sphere-trace and the EDF sampling mode.
     # Default covers exact parity on the builtin maps: worst case is
     # max_range/resolution = 10/0.05 = 200 steps (wall-grazing rays);

@@ -7,9 +7,9 @@ at map-set time via the classic two-pass 1D lower-envelope algorithm
 *meters* to the nearest occupied cell, which the ray-marcher uses as a safe
 sphere-trace step size.
 
-TPU-native placement: the EDT runs once per map mutation on the *host* (it is
+Placement: the EDT runs once per map mutation on the *host* (it is
 init-time, not hot-path — SURVEY.md §2c item 1), then the resulting EDF is
-shipped to HBM. Two host implementations are provided:
+shipped to device memory. Two host implementations are provided:
 
 * a vectorized NumPy implementation (always available), and
 * an optional C++ implementation (``csrc/edt.cpp`` via ctypes) matching the

@@ -6,10 +6,10 @@ free_thresh, negate`` — into a row-major occupancy array, then builds the
 euclidean distance field from it (SURVEY.md §2a "Map loader & assets",
 §3.1 init call stack). This module keeps the file format byte-compatible.
 
-TPU-native design: host-side parsing produces a ``TrackMap`` whose occupancy
-and EDF live as jnp arrays (shipped to HBM once per map mutation). The EDF is
-padded on the right/top to lane-aligned dimensions so downstream kernels and
-XLA gathers see aligned shapes. Padding cells are FREE (a ray leaving the
+Design: host-side parsing produces a ``TrackMap`` whose occupancy and EDF
+live as jnp arrays (shipped to device memory once per map mutation). The EDF
+is padded on the right/top to 128-aligned dimensions so downstream sweeps
+and XLA gathers see aligned shapes. Padding cells are FREE (a ray leaving the
 real map must return max_range, exactly like the reference's out-of-map
 exit — occupied padding would fake walls at two edges); consumers test
 in-bounds against the real ``(height, width)``, not the padded shape.
@@ -24,11 +24,6 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-
-try:
-    import yaml
-except ImportError:  # pragma: no cover
-    yaml = None
 
 from .edt import edt
 
@@ -170,12 +165,60 @@ def build_track_map(occupancy: np.ndarray, resolution: float,
         height=h, width=w, name=name)
 
 
+def _yaml_scalar(text: str):
+    """One flat YAML scalar or flow list: number, [a, b, c], or string."""
+    text = text.strip()
+    if text.startswith("[") and text.endswith("]"):
+        inner = text[1:-1].strip()
+        return [_yaml_scalar(t) for t in inner.split(",")] if inner else []
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    try:
+        return int(text)
+    except ValueError:
+        pass
+    try:
+        return float(text)
+    except ValueError:
+        return text
+
+
+def parse_map_yaml(text: str) -> dict:
+    """Parse a ROS map_server sidecar: flat ``key: value`` lines (``image``,
+    ``resolution``, ``origin``, ``negate``, ``occupied_thresh``,
+    ``free_thresh``), ``#`` comments, flow lists. Enough for the format,
+    so the main path does not need pyyaml; nested YAML raises."""
+    meta = {}
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = raw.split(" #", 1)[0].rstrip()
+        if not line.strip() or line.lstrip().startswith("#"):
+            continue
+        if line[0].isspace() or ":" not in line:
+            raise ValueError(f"map YAML line {n}: expected a flat "
+                             f"'key: value' line, got {raw!r}")
+        key, val = line.split(":", 1)
+        if not val.strip():
+            raise ValueError(f"map YAML line {n}: key {key.strip()!r} "
+                             "has no value (nested YAML is not supported)")
+        meta[key.strip()] = _yaml_scalar(val)
+    return meta
+
+
+def _read_map_yaml(yaml_path: str) -> dict:
+    """The sidecar's keys: pyyaml when it is importable (full YAML), the
+    flat parser otherwise."""
+    with open(yaml_path) as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        return parse_map_yaml(text)
+    return yaml.safe_load(text)
+
+
 def load_map_yaml(yaml_path: str) -> TrackMap:
     """Load a ROS map YAML + image pair into a TrackMap (reference init path)."""
-    if yaml is None:  # pragma: no cover
-        raise RuntimeError("pyyaml unavailable")
-    with open(yaml_path) as f:
-        meta = yaml.safe_load(f)
+    meta = _read_map_yaml(yaml_path)
     img_path = meta["image"]
     if not os.path.isabs(img_path):
         img_path = os.path.join(os.path.dirname(yaml_path), img_path)

@@ -1,16 +1,15 @@
 """Occupancy-boundary segment extraction ("compiled geometry").
 
-TPU-native performance layer with no reference equivalent (SURVEY.md §2b/§7
-"hard parts": the DT march is gather-bound, and TPUs have no vector-gather
-hardware — measured ~1.4e8 gathers/s on v5e, capping a gather-based march at
-a few Mrays/s/chip). The fix is to *compile the map into geometry once at
-load time*: the boundary of the occupied-cell union is an axis-aligned
-polygon set; raycasting against its segments is dense VPU/MXU-friendly math
-with zero gathers in the hot loop. (Same family as CDDT's observation that
+Performance layer with no reference equivalent (SURVEY.md §2b/§7 "hard
+parts": the DT march is a chain of dependent gathers per ray). The
+alternative is to *compile the map into geometry once at load time*: the
+boundary of the occupied-cell union is an axis-aligned polygon set;
+raycasting against its segments is dense, branch-free vector math with
+zero gathers in the hot loop. (Same family as CDDT's observation that
 occupancy-grid raycasts should be precomputed into compressed geometric
 structure, arXiv:1705.01167 / PAPERS.md — here the "compression" is exact
 boundary geometry and the query is a dense min-reduction instead of a LUT
-walk, because TPUs trade random access for vector math.)
+walk.) Which of the two is faster on the card is not measured yet.
 
 Semantics contract (tested in tests/test_segments.py):
   * The segment raycast computes the EXACT first intersection of the ray
@@ -130,7 +129,7 @@ def split_pad_segments(segs: np.ndarray, align: int = _LANE):
 
     Returns (params (4, KV+KH), KV, KH). Splitting lets raycast kernels
     run two orientation-specialized sweeps with zero per-pair
-    ``is_vertical`` selects (~25% fewer VPU ops).
+    ``is_vertical`` selects (~25% fewer vector ops per pair).
     """
     v = segs[segs[:, 3] > 0.5] if len(segs) else segs
     h = segs[segs[:, 3] <= 0.5] if len(segs) else segs
@@ -146,7 +145,7 @@ class SegmentMap:
     """Device-resident compiled geometry for the dense raycast backend.
 
     ``params``: (4, K) float32 — rows [p, lo, hi, is_vertical], transposed
-    so the segment axis is the (TPU lane) minor axis.
+    so the segment axis is the minor axis.
     ``tiles``: optional culling table, (T, 4, K_tile) float32 — per coarse
     map tile, the (padded) segments within ``max_range`` of that tile.
     """
@@ -154,13 +153,6 @@ class SegmentMap:
     params: Any
     n_segments: int
     tiles: Any = None
-    # int32 [v_hi, h_lo, h_end] real-segment sweep bounds for the Pallas
-    # kernel (ops/raycast_pallas.py) - a LEAF so obstacle rebuilds with
-    # different V/H counts don't retrace.
-    sweep_meta: Any = None
-    # int32 (T, 3) per-tile sweep bounds (same convention, relative to the
-    # tile's own block) for the tiled Pallas kernel - also a leaf.
-    tile_sweep_meta: Any = None
     tile_size: float = 0.0           # meters (static)
     tiles_shape: Tuple[int, int] = (0, 0)  # (rows, cols) of the tile grid
     tile_origin: Tuple[float, float] = (0.0, 0.0)
@@ -175,21 +167,18 @@ class SegmentMap:
     kv_tile: int = 0
 
     def tree_flatten(self):
-        # n_segments and sweep_meta ride as LEAVES: they change on obstacle
-        # rebuilds while padded shapes usually don't - keeping them out of
-        # the aux data keeps the jit cache key stable (no recompiles per
-        # obstacle).
-        return (self.params, self.tiles, self.n_segments,
-                self.sweep_meta, self.tile_sweep_meta), (
+        # n_segments rides as a LEAF: it changes on obstacle rebuilds
+        # while padded shapes usually don't - keeping it out of the aux
+        # data keeps the jit cache key stable (no recompiles per obstacle).
+        return (self.params, self.tiles, self.n_segments), (
             self.tile_size, self.tiles_shape,
             self.tile_origin, self.extent, self.kv, self.kv_tile)
 
     @classmethod
     def tree_unflatten(cls, aux, leaves):
-        params, tiles, n, meta, tmeta = leaves
+        params, tiles, n = leaves
         ts, tshape, torg, ext, kv, kvt = aux
-        return cls(params=params, tiles=tiles, n_segments=n,
-                   sweep_meta=meta, tile_sweep_meta=tmeta, tile_size=ts,
+        return cls(params=params, tiles=tiles, n_segments=n, tile_size=ts,
                    tiles_shape=tshape, tile_origin=torg, extent=ext,
                    kv=kv, kv_tile=kvt)
 
@@ -220,23 +209,12 @@ def build_segment_map(occupancy: np.ndarray, resolution: float,
     """
     segs = extract_segments(occupancy, resolution, origin_xy,
                             occupied_thresh)
-    n_vertical = int((segs[:, 3] > 0.5).sum()) if len(segs) else 0
-    # split layout drops per-pair orientation selects (~25% fewer ops) but
-    # pads V and H groups separately; only worth it when that padding
-    # doesn't blow up the table (small maps: mixed layout wins)
-    mixed_k = len(pad_segments(segs))
-    padded_T, kv_, kh_ = split_pad_segments(segs)
-    if kv_ + kh_ <= 1.25 * mixed_k:
-        out_params = jnp.asarray(padded_T, jnp.float32)  # (4, KV+KH)
-        kv = kv_
-        sweep_meta = jnp.asarray(
-            [n_vertical, kv_, kv_ + (len(segs) - n_vertical)], jnp.int32)
-    else:
-        out_params = jnp.asarray(pad_segments(segs).T, jnp.float32)
-        kv = 0
-        # mixed layout keeps extract order: V block, H block, sentinels
-        sweep_meta = jnp.asarray(
-            [n_vertical, n_vertical, len(segs)], jnp.int32)
+    # Always the split layout (V block | H block, each padded): it drops
+    # the per-pair orientation selects, and the mixed layout's selects
+    # made XLA's GPU compiler take minutes on a 4096x1080 scan (levine:
+    # 354 s to compile vs 0.6 s split, H100, PERF.md)
+    padded_T, kv, _ = split_pad_segments(segs)
+    out_params = jnp.asarray(padded_T, jnp.float32)  # (4, KV+KH)
     rh, rw = real_hw if real_hw is not None else occupancy.shape
     ox0, oy0 = float(origin_xy[0]), float(origin_xy[1])
     extent = (ox0, ox0 + rw * resolution, oy0, oy0 + rh * resolution)
@@ -252,7 +230,6 @@ def build_segment_map(occupancy: np.ndarray, resolution: float,
         nr = int(np.ceil(ext_y / tile_size))
         reach = max_range + tile_size * np.sqrt(2) / 2 + resolution
         lists = []
-        k_needed = 0
         sel_idx = []
         for r in range(nr):
             for c in range(nc):
@@ -261,7 +238,6 @@ def build_segment_map(occupancy: np.ndarray, resolution: float,
                 d = _segment_tile_distance(segs, cx, cy)
                 idx = np.where(d <= reach)[0]
                 sel_idx.append(idx)
-                k_needed = max(k_needed, len(idx))
         # split every tile into V|H sub-blocks with GLOBAL padded sizes
         def _pad_group(group, kp):
             if len(group) > kp:
@@ -287,42 +263,28 @@ def build_segment_map(occupancy: np.ndarray, resolution: float,
             kh_needed = max(kh_needed, len(h))
         a = lambda n: max(_LANE, ((n + _LANE - 1) // _LANE) * _LANE)
         kv_t, kh_t = a(kv_needed), a(kh_needed)
-        mixed_kt = a(max(len(v) + len(h) for v, h in groups))
         if k_tile > 0:
             kv_t = kh_t = a(k_tile // 2)
-        tmeta = []
-        if kv_t + kh_t <= 1.25 * mixed_kt:
-            for v, h in groups:
-                bv = _pad_group(v, kv_t)
-                bv[:, 3] = 1.0
-                bh = _pad_group(h, kh_t)
-                bh[:, 3] = 0.0
-                lists.append(np.concatenate([bv, bh], axis=0).T)
-                tmeta.append([len(v), kv_t, kv_t + len(h)])
-            kv_tile = kv_t
-        else:
-            for v, h in groups:
-                blk = _pad_group(np.concatenate([v, h], axis=0), mixed_kt)
-                lists.append(blk.T)
-                tmeta.append([len(v), len(v), len(v) + len(h)])
-            kv_tile = 0
+        for v, h in groups:
+            bv = _pad_group(v, kv_t)
+            bv[:, 3] = 1.0
+            bh = _pad_group(h, kh_t)
+            bh[:, 3] = 0.0
+            lists.append(np.concatenate([bv, bh], axis=0).T)
+        kv_tile = kv_t
         tiles = jnp.asarray(np.stack(lists), jnp.float32)
-        tile_sweep_meta = jnp.asarray(tmeta, jnp.int32)
         tiles_shape = (nr, nc)
         tile_origin = (ox, oy)
         if tiles.shape[2] >= out_params.shape[1]:
             # culling buys nothing (every tile sees ~the whole set) and the
             # per-agent tile gather costs ~40%: use the full-set path
             tiles = None
-            tile_sweep_meta = None
             tiles_shape = (0, 0)
             kv_tile = 0
     else:
         kv_tile = 0
-        tile_sweep_meta = None
 
     return SegmentMap(params=out_params, n_segments=len(segs), tiles=tiles,
-                      sweep_meta=sweep_meta, tile_sweep_meta=tile_sweep_meta,
                       tile_size=float(tile_size), tiles_shape=tiles_shape,
                       tile_origin=tile_origin, extent=extent,
                       kv=kv, kv_tile=kv_tile)

@@ -1,12 +1,12 @@
 """Pure-JAX vehicle dynamics: Ackermann / KS / ST single-track models.
 
-TPU-native equivalents of the reference's native dynamics tier (SURVEY.md
-§2a rows "Ackermann/KS/ST kinematics", "Input processing"; §2c item 4:
-element-wise math compiles to native TPU code under XLA — no Pallas needed).
+Equivalents of the reference's native dynamics tier (SURVEY.md §2a rows
+"Ackermann/KS/ST kinematics", "Input processing"; §2c item 4: element-wise
+math that XLA fuses into the step — no hand-written kernel needed).
 Every function is pure, shape-polymorphic (works on scalars or any batch
 shape), jit/vmap/grad-compatible, and branchless: the reference's
 ``if |v| < v_switch`` becomes ``jnp.where`` so the whole agent batch steps
-in lockstep on the VPU.
+in lockstep on the device.
 
 Parity: matches ``oracle/dynamics.py`` to float32 tolerance
 (tests/test_dynamics.py), which in turn encodes the reference semantics.

@@ -1,6 +1,6 @@
 """Time-to-collision (TTC) check — pure JAX.
 
-TPU-native equivalent of the reference's per-beam TTC loop and its
+Batched equivalent of the reference's per-beam TTC loop and its
 ``Precompute`` tables (SURVEY.md §2a "TTC precompute" / "TTC collision
 check"; lineage ``precompute.cpp`` + facade collision branch). Tables are
 trace-time jnp constants (SURVEY.md §2c item 5); the check itself is a

@@ -4,7 +4,5 @@ from .raycast_segments import raycast_all, raycast_tiled, scan_poses_segments
 from .raycast_grad import raycast_all_diff, raycast_tiled_diff
 from .raycast_general import (raycast_general, raycast_general_tiled,
                               scan_poses_general)
-from .raycast_pallas import (raycast_pallas, raycast_pallas_tiled,
-                             scan_poses_pallas)
 from .soft_edt import soft_edt, scan_from_occupancy
 from .noise import add_scan_noise

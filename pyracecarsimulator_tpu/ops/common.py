@@ -43,8 +43,7 @@ def fan_cos_sin(theta, offs, theta_discretization: int = 0):
     identical (d ct/d theta = -st); values differ from cos(theta + d)
     by ~1 ulp (both are f32 roundings of the same real angle), and
     every backend shares THIS definition, so cross-backend bit-parity
-    is unaffected. Measured v5e round 5: the per-ray transcendentals
-    were ~8% of the levine facade scan.
+    is unaffected.
 
     theta_discretization > 0 keeps the reference theta-bucket table
     semantics (quantize_angles of the summed angle) unchanged.

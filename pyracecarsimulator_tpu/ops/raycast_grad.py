@@ -18,7 +18,7 @@ Winner tracking is nearly free: because every segment is axis-aligned, the
 winner's ``u_perp`` is the RAY's own cos/sin — the only per-ray residual the
 backward needs is the winning ORIENTATION bit. That bit falls out of
 carrying separate vertical/horizontal minima (``isv = t_v <= t_h``), which
-costs ~2 extra VPU ops/pair vs the ~10 of an argmin-style tie-max sweep.
+costs ~2 extra vector ops/pair vs the ~10 of an argmin-style tie-max sweep.
 Cost: fwd+bwd ~= 1.2x fwd (measured; previously 2.7x with tie-max).
 
 Map gradients (``d range/d map``) go through the EDF-march backend

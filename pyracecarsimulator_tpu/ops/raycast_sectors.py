@@ -1,19 +1,16 @@
-"""Sector-culled dense segment raycast (XLA sweep + fused Pallas kernel).
+"""Sector-culled dense segment raycast (plain XLA sweeps).
 
-Beams are grouped into angle-contiguous blocks of ``bb`` (default 128 =
-one TPU lane register); each block intersects only its (tile, sector)
-cull list from ``maps/sectors.py``. Same exact-boundary semantics as
+Beams are grouped into angle-contiguous blocks of ``bb`` (default 128);
+each block intersects only its (tile, sector) cull list from
+``maps/sectors.py``. Same exact-boundary semantics as
 ``raycast_segments`` (culling is conservative; tests/test_sectors.py).
 
-Two execution paths over the same tables:
-  * XLA dense sweep: beam-minor layout — the (block, segment) intermediate
-    puts BEAMS on lanes and segments on sublanes, so list capacity pads to
-    the 8-sublane quantum instead of the 128-lane quantum. Work per ray is
-    bound by the MAX list length (dense shapes).
-  * Pallas kernel: one program per (agent, beam-block), segment block
-    routed by scalar-prefetched ids (raycast_pallas._kernel_tiled), with
-    per-list dynamic sweep bounds — work per ray is bound by the MEAN real
-    list length, typically several x shorter than the max.
+Two sweep families over the same tables:
+  * dense (``_sweep_xla``): beam-minor layout, every ray sweeps the full
+    padded list capacity K — work per ray is bound by the MAX list length.
+  * length-sorted (``_sweep_xla_sorted*``): rays sorted by their list's
+    real length and tiled, each tile sweeping only the chunks its longest
+    list needs — work per ray is bound by the batch-visited MEAN length.
 
 Both carry the analytic O(rays) VJP (raycast_grad._winner_vjp).
 """
@@ -42,12 +39,11 @@ def sector_block_width(smap, num_beams: int, fov: float,
     in-block beam; maps/sectors.py proof obligation). Used by
     ``scan_poses_sectors``, ``scan_poses_sectors_multi`` and the sharded
     paths in ``parallel/mesh.py`` — a drift between per-path copies would
-    silently violate the coverage contract only on one of them (VERDICT r3
-    weak #6). Works for ``SectorSegmentMap`` and ``StackedSectorMap``
+    silently violate the coverage contract only on one of them. Works for ``SectorSegmentMap`` and ``StackedSectorMap``
     (anything with ``block_half``).
 
-    With ``bb=None`` returns the widest supported block, capped at one
-    lane register (128 = the flagship 1080-beam/270 deg block size).
+    With ``bb=None`` returns the widest supported block, capped at 128
+    (the flagship 1080-beam/270 deg block size).
     Raises ValueError when the requested/derived ``bb`` exceeds what the
     map was built for.
     """
@@ -94,44 +90,29 @@ def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
 
 def _sweep_xla(table, kv_sec, ids, x, y, cos_t, sin_t, inv_c, inv_s,
                chunk: int):
-    """Beam-minor dense sweep. Ray args are (A, NBLK, BB); ids (A, NBLK).
-    Returns per-orientation minima (best_v, best_h), shaped (A, NBLK, BB).
+    """Beam-minor dense sweep over ray rows: ray args (G, BB), ``ids``
+    (G,) rows into ``table``. Returns per-orientation minima
+    (best_v, best_h), each (G, BB).
 
-    The (agent, block) axes are flattened to ONE major axis G before the
-    sweep: with the 4D (A, NBLK, ck, BB) intermediates, a non-power-of-2
-    NBLK cost 1.6x (measured v5e: 1080 beams/9 blocks 1.09e9 true rays/s
-    vs 8 blocks 1.83e9 — XLA's layout handling of the odd middle dim);
-    flattening leaves the odd factor on a single major dim.
+    Callers flatten (agent, block) into the ONE major axis G, so a
+    non-power-of-2 block count (1080 beams = 9 blocks) sits on a single
+    major dim instead of an odd middle dim of 4D intermediates.
 
     The cull rows are gathered ONCE per ray-block from the 2D-flattened
     (L, 4K) table view — one contiguous row per list — and the
-    orientation chunks are static slices of the gathered buffer. The
-    previous per-chunk 3D column-sliced takes were the sweep's dominant
-    fixed cost (measured v5e, scripts/ablate_fixed.py: levine raw
-    1.31e9 -> 2.37e9 rays/s from this change alone; a gather-free
-    variant only reaches 2.53e9, so the 2D row gather itself is nearly
-    free).
+    orientation chunks are static slices of the gathered buffer.
 
-    Memory note (ADVICE r3): the gathered buffer ``g_all`` is
-    (A*NBLK, 4, K) floats and is NOT bounded by ``chunk`` (which only
-    sizes the compute intermediate) — berlin-class K=496 at 4096 agents
-    is ~0.6 GB, at the 65k-agent config ~9.4 GB per un-sharded device.
-    Very large single-device batches should shard agents (parallel/mesh)
-    or call in agent chunks; the flagship configs fit with margin.
+    Memory note: the gathered buffer ``g_all`` is (A*NBLK, 4, K) floats
+    and is NOT bounded by ``chunk`` (which only sizes the compute
+    intermediate) — berlin-class K=496 at 4096 agents is ~0.3 GB, at the
+    65k-agent config ~4.7 GB per un-sharded device. ``scan_poses_sectors``
+    splits very large batches into agent chunks (``_auto_agent_chunk``).
     """
-    a_n, nblk, bb = jnp.shape(x)
-    gdim = a_n * nblk
-    flat = lambda v: v.reshape(gdim, bb)
-    x, y, cos_t, sin_t, inv_c, inv_s = map(
-        flat, (x, y, cos_t, sin_t, inv_c, inv_s))
-    ids = ids.reshape(gdim)
     k = table.shape[2]
     g_all = jnp.take(table.reshape(table.shape[0], 4 * k), ids,
-                     axis=0).reshape(gdim, 4, k)
-    bv, bh = _sweep_gathered(g_all, kv_sec, x, y, cos_t, sin_t, inv_c,
-                             inv_s, chunk)
-    unflat = lambda v: v.reshape(a_n, nblk, bb)
-    return unflat(bv), unflat(bh)
+                     axis=0).reshape(ids.shape[0], 4, k)
+    return _sweep_gathered(g_all, kv_sec, x, y, cos_t, sin_t, inv_c,
+                           inv_s, chunk)
 
 
 def _sweep_gathered(g_all, kv_sec, x, y, cos_t, sin_t, inv_c, inv_s,
@@ -182,10 +163,8 @@ def _sweep_xla_sorted(table, meta, kv_sec, ids, x, y, cos_t, sin_t,
     well past the real need. Note the honest prize is the BATCH-visited
     mean, not the table mean: rays concentrate in long-list (open
     free-space) tiles, so berlin's visited lists average ~198 of K=496
-    (table mean 109) — predicted sorted-tile work ratio 0.40 of dense
-    (scripts/bench_sorted.py [batch] analysis), i.e. ~2.5x, not the 4.4x
-    the round-3 table-mean framing suggested. This variant recovers that
-    bound with XLA-legal control flow:
+    (table mean 109) — a predicted sorted-tile work ratio of 0.40 of
+    dense. This variant recovers that bound with XLA-legal control flow:
 
       1. gather each ray row's real V/H counts from ``meta`` (a leaf);
       2. sort ray rows by total count, descending (row gathers of the six
@@ -210,10 +189,9 @@ def _sweep_xla_sorted(table, meta, kv_sec, ids, x, y, cos_t, sin_t,
     ``lazy_gather=False`` pre-gathers the full (G, 4, K) cull buffer once
     (the dense sweep's form); ``True`` instead gathers each work item's
     (tile_rows, C, 4) chunk inside the loop from a slot-major (L, K*4)
-    view — mean-bound HBM traffic too, for the large-K regime where the
-    full-row gather itself is the bottleneck (BASELINE.md: the K=256->512
-    dense plateau). ``do_sort=False`` skips step 2 (A/B lever: saves the
-    row gathers, pays looser tile maxes).
+    view — mean-bound memory traffic too, for the large-K regime where the
+    full-row gather itself is the bottleneck. ``do_sort=False`` skips
+    step 2 (saves the row gathers, pays looser tile maxes).
     """
     g_n, bb = x.shape
     k = table.shape[2]
@@ -318,8 +296,8 @@ def _sweep_xla_sorted(table, meta, kv_sec, ids, x, y, cos_t, sin_t,
 
         # update BOTH carry buffers with masked mins (no lax.cond around
         # the carries: cond branches returning whole buffers defeat
-        # XLA's in-place while-carry analysis and copy ~40 MB/iteration
-        # — measured v5e: the cond form ran 8x SLOWER than dense)
+        # XLA's in-place while-carry analysis and copy the full buffers
+        # every iteration)
         def upd(b, mm):
             cur = jax.lax.dynamic_slice(b, (row0, 0), (tr, bb))
             return jax.lax.dynamic_update_slice(
@@ -347,14 +325,12 @@ def _sweep_xla_sorted_pt(table, meta, kv_sec, ids, x, y, cos_t, sin_t,
 
     `_sweep_xla_sorted` min-accumulates every work item into the two
     full (G, BB) output buffers via dynamic_update_slice on the
-    while-loop carry; measured on v5e that form reaches only ~50% of its
-    predicted work ratio (berlin: 2.65e8 vs an 0.43-ratio ideal of
-    ~5.4e8 — the per-iteration gap ~= one 19 MB buffer copy, i.e. XLA
-    materializes copy-on-write for the sliced carry updates). Here the
-    outer loop is a ``lax.scan`` whose per-tile (TR, BB) results are
-    written once by scan's output stacking, and the inner while-loop
-    carry is only the per-tile accumulators (TR, BB ~ 1 MB) updated by
-    FULL elementwise mins — nothing for XLA to copy-on-write.
+    while-loop carry, which XLA can materialize as a copy-on-write of
+    the whole buffer per iteration. Here the outer loop is a
+    ``lax.scan`` whose per-tile (TR, BB) results are written once by
+    scan's output stacking, and the inner while-loop carry is only the
+    per-tile accumulators (TR, BB) updated by FULL elementwise mins —
+    nothing for XLA to copy-on-write.
 
     Work bound, exactness and sorting are identical to
     `_sweep_xla_sorted` (same chunk-count derivation from ``meta``, same
@@ -362,12 +338,8 @@ def _sweep_xla_sorted_pt(table, meta, kv_sec, ids, x, y, cos_t, sin_t,
 
     ``transpose_chunks=True`` stores each tile's gathered cull rows
     slot-major — (K, 4, TR) instead of (TR, 4, K) — so the per-iteration
-    chunk slice is a MAJOR-axis dynamic_slice: contiguous and
-    vreg-aligned for every slot offset. The row-major form slices the
-    minor axis at 32/64-slot offsets of a 496-wide dim, which Mosaic can
-    only serve with lane relayouts (suspected source of the measured
-    ~40 us/iteration overhead; the A/B in scripts/bench_sorted.py
-    discriminates).
+    chunk slice is a MAJOR-axis dynamic_slice, contiguous for every slot
+    offset, instead of a minor-axis slice of the K-wide dim.
     """
     g_n, bb = x.shape
     k = table.shape[2]
@@ -469,72 +441,41 @@ def _sweep_xla_sorted_pt(table, meta, kv_sec, ids, x, y, cos_t, sin_t,
     return bv[:g_n], bh[:g_n]
 
 
-_AUTO_MIN_K = 112     # lowest MEASURED capacity where the fused kernel
-                      # beats dense (round-5 ladder; see resolve docstring)
-_AUTO_TR = 128        # best of the measured v5e tile ladder (BOTTLENECK.md)
-_AUTO_CHUNK = 24
-_AUTO_KIND = "sorted_plf"   # round 5: fused-gather kernel (berlin 7.3e8
-                            # vs 4.6e8 for the XLA-pre-gather kernel)
+# mode strings of removed Pallas kernels ("sorted_pt" replaces them all)
+_REMOVED_MODES = ("sorted_pl", "sorted_plf", "sorted_plfm", "sorted_plfr",
+                  "sorted_plfmr")
 
 
-def resolve_sector_mode(mode: str, k: int, bb: int,
-                        interpret: bool = False,
-                        kv: int | None = None,
-                        has_ck: bool = True) -> tuple:
-    """Resolve "auto" to a concrete (mode, chunk | None) for a table of
-    capacity ``k`` swept in ``bb``-beam blocks.
+def resolve_sector_mode(mode: str) -> str:
+    """Resolve "auto" to a concrete sweep mode; validate any other mode.
 
-    "auto" picks the fused-gather sorted-tile Pallas kernel
-    (raycast_pallas.sweep_sorted_tiles_fused) when the capacity is large
-    enough that capacity-bound dense work dominates, and only on a real
-    TPU backend with ``interpret=False`` (the interpret-mode kernel is
-    orders slower than the XLA sweep, so debug/parity runs that force
-    ``interpret=True`` on a TPU fall back to "dense"; ADVICE r4).
-    Everything else stays "dense".
-
-    Threshold calibration, round 5 — a MEASURED ladder, not the round-4
-    interpolation (v5e, 4096x1080, scripts/bench_sorted.py with MR/NS/
-    TILE capacity levers on berlin + forced-table_ck probes; parity 0.0
-    at every point):
-
-        K (batch mean)   dense      sorted_plf   ratio
-        32   (levine)    2.43e9     1.01e9       0.41x  <- dense wins
-        112  (23)        8.92e8     9.42e8       1.06x  <- crossover
-        160  (37)        6.65e8     9.95e8       1.50x
-        256  (69)        3.87e8     9.22e8       2.38x
-        496  (198)       2.34e8     7.33e8       3.13x
-
-    The cut sits at the lowest measured winning capacity (112); the
-    interval (32, 112) is unrealizable with the builtin geometry and is
-    conceded to "dense" (at 112 the kernel's edge is only 6%, and the
-    kernel's per-ray fixed costs — sort, ray transposes, per-row DMA —
-    dominate as K shrinks).
+    "auto" is the dense sweep at every table capacity. Timed on one H100
+    at 4096 agents x 1080 beams (scripts/sector_modes.py; numbers in
+    PERF.md), dense beat the length-sorted ``sorted_pt`` at every
+    capacity measured, K = 32 to 496, forward and forward+backward, and
+    the gap in milliseconds grew with K: the sorted sweep's row sort and
+    sequential tile loop cost more than the padded slots it skips.
+    Every mode gives identical values (tests/test_sectors.py).
     """
-    if mode != "auto":
-        return mode, None
-    # single-orientation tables (kv or kh below the sublane quantum)
-    # cannot run the sorted kernels (c = min(chunk, kv, kh) would be 0);
-    # auto concedes them to dense instead of erroring (code-review r5)
-    both_orient = kv is None or (kv >= 8 and k - kv >= 8)
-    if (k >= _AUTO_MIN_K and bb == 128 and both_orient and not interpret
-            and jax.default_backend() == "tpu"):
-        if not has_ck:
-            # a map without the fused-kernel layout (pre-round-5 pickle)
-            # degrades to the round-4 kernel instead of erroring
-            # (code-review r5): same values, ~4.7e8 vs 7.3e8 on berlin
-            return f"sorted_pl@{_AUTO_TR}", _AUTO_CHUNK
-        return f"{_AUTO_KIND}@{_AUTO_TR}", _AUTO_CHUNK
-    return "dense", None
+    if mode == "auto":
+        return "dense"
+    _parse_mode(mode)
+    return mode
 
 
 def _parse_mode(mode: str):
     """"dense" | "sorted[@TR]" | "sorted_lazy[@TR]" | "sorted_nosort[@TR]"
-    | "sorted_pt[@TR]" | "sorted_pt_nosort[@TR]"
+    | "sorted_pt[@TR]" | "sorted_pt_nosort[@TR]" | "sorted_ptt[@TR]"
     -> (kind, tile_rows, do_sort, lazy_gather)."""
     tr = 64
+    name = mode
     if "@" in mode:
         mode, tr_s = mode.split("@", 1)
         tr = int(tr_s)
+    if mode in _REMOVED_MODES:
+        raise ValueError(
+            f"sector sweep mode {name!r} was a Pallas kernel that has been "
+            "removed; use 'sorted_pt' (same values, plain XLA) or 'auto'")
     if mode == "dense":
         return "dense", tr, True, False
     if mode == "sorted":
@@ -549,116 +490,53 @@ def _parse_mode(mode: str):
         return "sorted_pt", tr, False, False
     if mode == "sorted_ptt":
         return "sorted_ptt", tr, True, False
-    if mode == "sorted_pl":
-        return "sorted_pl", tr, True, False
-    if mode in ("sorted_plf", "sorted_plfm", "sorted_plfr",
-                "sorted_plfmr"):
-        # fused-gather sorted-tile kernel (raycast_pallas.
-        # sweep_sorted_tiles_fused); the table argument must be the
-        # (table, table_ck) pair. "m" = MXU-transpose engine; trailing
-        # "r" = ragged per-group fetch (A/B; default is the one-DMA
-        # full-capacity row fetch).
-        return mode, tr, True, False
-    raise ValueError(f"unknown sector sweep mode {mode!r}")
+    raise ValueError(f"unknown sector sweep mode {name!r}")
+
+
+def _sweep_flat(table, meta, kv_sec, ids, x, y, cos_t, sin_t, inv_c,
+                inv_s, chunk, mode):
+    """Dispatch one sweep mode over flattened ray rows: ``ids`` (G,) rows
+    into ``table``, ray args (G, BB). Returns (best_v, best_h), (G, BB)."""
+    kind, tile_rows, do_sort, lazy = _parse_mode(mode)
+    args = (x, y, cos_t, sin_t, inv_c, inv_s)
+    if kind == "dense":
+        return _sweep_xla(table, kv_sec, ids, *args, chunk)
+    if kind in ("sorted_pt", "sorted_ptt"):
+        return _sweep_xla_sorted_pt(table, meta, kv_sec, ids, *args,
+                                    chunk=chunk, tile_rows=tile_rows,
+                                    do_sort=do_sort,
+                                    transpose_chunks=kind == "sorted_ptt")
+    return _sweep_xla_sorted(table, meta, kv_sec, ids, *args, chunk=chunk,
+                             tile_rows=tile_rows, do_sort=do_sort,
+                             lazy_gather=lazy)
 
 
 def _fwd_impl(table, meta, tiles_shape, tile_size, tile_origin, ns, kv_sec,
-              x0, y0, x, y, cos_t, sin_t, max_range, bb, chunk,
-              use_pallas, interpret, grp, mode):
+              x0, y0, x, y, cos_t, sin_t, max_range, bb, chunk, mode):
     a_n, b_n = x.shape
     nblk = -(-b_n // bb)
     b_pad = nblk * bb - b_n
     ids = _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0,
                     cos_t, sin_t, bb)
     inv_c, inv_s = _ray_invs(cos_t, sin_t)
-    args = [_pad_beams(v, b_pad) for v in (x, y, cos_t, sin_t, inv_c,
-                                           inv_s)]
-    kind, tile_rows, do_sort, lazy = _parse_mode(mode)
-    if kind in ("sorted", "sorted_pt", "sorted_ptt", "sorted_pl",
-                "sorted_plf", "sorted_plfm", "sorted_plfr",
-                "sorted_plfmr") and not use_pallas:
-        flat = [v.reshape(a_n * nblk, bb) for v in args]
-        if kind.startswith("sorted_plf"):
-            from .raycast_pallas import sweep_sorted_tiles_fused
-            tab, tck = table
-            bv, bh = sweep_sorted_tiles_fused(
-                tck, meta, kv_sec, tab.shape[2], ids.reshape(-1),
-                flat[0][:, 0], flat[1][:, 0], *flat[2:], chunk=chunk,
-                tile_rows=tile_rows,
-                transpose_mode=("mxu" if kind.startswith("sorted_plfm")
-                                else "xlu"),
-                fetch=("ragged" if kind.endswith("r") else "full"),
-                interpret=interpret)
-        elif kind == "sorted_pl":
-            from .raycast_pallas import sweep_sorted_tiles_pallas
-            bv, bh = sweep_sorted_tiles_pallas(
-                table, meta, kv_sec, ids.reshape(-1), flat[0][:, 0],
-                flat[1][:, 0], *flat[2:], chunk=chunk,
-                tile_rows=tile_rows, interpret=interpret)
-        elif kind in ("sorted_pt", "sorted_ptt"):
-            bv, bh = _sweep_xla_sorted_pt(table, meta, kv_sec,
-                                          ids.reshape(-1), *flat,
-                                          chunk=chunk,
-                                          tile_rows=tile_rows,
-                                          do_sort=do_sort,
-                                          transpose_chunks=(
-                                              kind == "sorted_ptt"))
-        else:
-            bv, bh = _sweep_xla_sorted(table, meta, kv_sec,
-                                       ids.reshape(-1), *flat,
-                                       chunk=chunk, tile_rows=tile_rows,
-                                       do_sort=do_sort, lazy_gather=lazy)
-        bv = bv.reshape(a_n, -1)[:, :b_n]
-        bh = bh.reshape(a_n, -1)[:, :b_n]
-        r = jnp.minimum(jnp.minimum(bv, bh), max_range)
-        isv = bv <= bh
-        hit = jnp.minimum(bv, bh) < max_range
-        return r, isv, hit
-    if use_pallas:
-        from .raycast_pallas import _raycast_pallas_ids_grp_raw, LANES
-        if bb % LANES:
-            raise ValueError(
-                f"the Pallas sector path needs bb to be a multiple of "
-                f"{LANES} lanes (got bb={bb}); use the XLA path for "
-                "smaller blocks")
-        rows = bb // LANES
-        flat = [v.reshape(a_n * nblk * rows, LANES) for v in args]
-        ids_flat = ids.reshape(-1)
-        if rows > 1:
-            ids_flat = jnp.repeat(ids_flat, rows)
-        bv, bh = _raycast_pallas_ids_grp_raw(ids_flat, meta, table,
-                                             *flat, grp=grp,
-                                             interpret=interpret)
-        bv = bv.reshape(a_n, nblk * bb)[:, :b_n]
-        bh = bh.reshape(a_n, nblk * bb)[:, :b_n]
-    else:
-        shaped = [v.reshape(a_n, nblk, bb) for v in args]
-        bv, bh = _sweep_xla(table, kv_sec, ids, *shaped, chunk)
-        bv = bv.reshape(a_n, -1)[:, :b_n]
-        bh = bh.reshape(a_n, -1)[:, :b_n]
+    flat = [_pad_beams(v, b_pad).reshape(a_n * nblk, bb)
+            for v in (x, y, cos_t, sin_t, inv_c, inv_s)]
+    bv, bh = _sweep_flat(table, meta, kv_sec, ids.reshape(-1), *flat,
+                         chunk, mode)
+    bv = bv.reshape(a_n, -1)[:, :b_n]
+    bh = bh.reshape(a_n, -1)[:, :b_n]
     r = jnp.minimum(jnp.minimum(bv, bh), max_range)
     isv = bv <= bh
     hit = jnp.minimum(bv, bh) < max_range
     return r, isv, hit
 
 
-def _table_zero_ct(mode: str, tshape):
-    """Zero cotangent for the ``table`` argument of the sector VJPs: a
-    (table, table_ck) pair of zeros in fused-kernel modes (the pair is
-    what rode forward), a single zeros array otherwise."""
-    if mode.split("@", 1)[0].startswith("sorted_plf"):
-        return tuple(jnp.zeros(s, jnp.float32) for s in tshape)
-    return jnp.zeros(tshape, jnp.float32)
-
-
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5, 6, 13, 14,
-                                                    15, 16, 17, 18, 19))
+                                                    15, 16))
 def raycast_sectors(table, meta, tiles_shape, tile_size, tile_origin,
                     ns, kv_sec, x0, y0, x, y, cos_t, sin_t,
                     max_range: float = 10.0, bb: int = 128,
-                    chunk: int = 64, use_pallas: bool = False,
-                    interpret: bool = False, grp: int = 8,
-                    mode: str = "dense"):
+                    chunk: int = 64, mode: str = "dense"):
     """Differentiable sector-culled raycast; rays are (A, B).
 
     Values match ``raycast_all`` over the same boundary geometry (culling
@@ -666,7 +544,7 @@ def raycast_sectors(table, meta, tiles_shape, tile_size, tile_origin,
     cotangents; the VJP is the analytic O(rays) closed form.
 
     ``mode``: "dense" (capacity-bound `_sweep_xla`) or the
-    "sorted"-family mean-bound sweeps (`_sweep_xla_sorted`) for
+    "sorted"-family mean-bound sweeps (`_sweep_xla_sorted*`) for
     large-capacity maps; identical values either way.
 
     The caller must guarantee that every beam of a ``bb``-block lies
@@ -675,109 +553,73 @@ def raycast_sectors(table, meta, tiles_shape, tile_size, tile_origin,
     """
     r, _, _ = _fwd_impl(table, meta, tiles_shape, tile_size, tile_origin,
                         ns, kv_sec, x0, y0, x, y, cos_t, sin_t, max_range,
-                        bb, chunk, use_pallas, interpret, grp, mode)
+                        bb, chunk, mode)
     return r
 
 
 def _rs_fwd(table, meta, tiles_shape, tile_size, tile_origin, ns, kv_sec,
-            x0, y0, x, y, cos_t, sin_t, max_range, bb, chunk, use_pallas,
-            interpret, grp, mode):
+            x0, y0, x, y, cos_t, sin_t, max_range, bb, chunk, mode):
     r, isv, hit = _fwd_impl(table, meta, tiles_shape, tile_size,
                             tile_origin, ns, kv_sec, x0, y0, x, y, cos_t,
-                            sin_t, max_range, bb, chunk, use_pallas,
-                            interpret, grp, mode)
-    # table is the (table, table_ck) pair in fused modes: carry plain
-    # shape tuples (static ints ride residuals fine; array-typed shape
-    # carriers do not survive shard_map's transpose) — the bwd picks the
-    # pair/single form from the static ``mode``
-    tshape = jax.tree.map(jnp.shape, table)
-    return r, (tshape, jnp.shape(meta), jnp.shape(x0),
+                            sin_t, max_range, bb, chunk, mode)
+    # plain shape tuples ride the residuals (array-typed shape carriers
+    # do not survive shard_map's transpose)
+    return r, (jnp.shape(table), jnp.shape(meta), jnp.shape(x0),
                r, isv, hit, cos_t, sin_t)
 
 
 def _rs_bwd(tiles_shape, tile_size, tile_origin, ns, kv_sec, max_range,
-            bb, chunk, use_pallas, interpret, grp, mode, res, g):
+            bb, chunk, mode, res, g):
     from .raycast_grad import _winner_vjp
     tshape, mshape, ashape, r, isv, hit, cos_t, sin_t = res
     gx, gy, gct, gst = _winner_vjp(r, isv, hit, cos_t, sin_t, g)
     z = jnp.zeros(ashape, jnp.float32)
     meta_ct = np.zeros(mshape, jax.dtypes.float0)
-    t_ct = _table_zero_ct(mode, tshape)
-    return (t_ct, meta_ct, z, z, gx, gy, gct, gst)
+    return (jnp.zeros(tshape, jnp.float32), meta_ct, z, z, gx, gy, gct,
+            gst)
 
 
 raycast_sectors.defvjp(_rs_fwd, _rs_bwd)
 
 
 # Auto agent-chunking: the sweeps pre-gather each ray row's (4, K) cull
-# list, a working set NOT bounded by the compute chunk — berlin-class
-# K=496 at 32k agents rides ~9.4 GB through the gather + slot-major
-# transposes and measured 26% slower per ray than 4096 agents
-# (BASELINE.md round 4); 65k un-chunked approaches the HBM limit. Large
-# batches are therefore split into agent chunks executed sequentially by
-# ``lax.map`` (values identical: rays are independent). The budget keeps
-# the flagship 4096-agent configs un-chunked on both bundled maps.
-_CHUNK_BYTES_BUDGET = 1.8e9
+# list, a working set NOT bounded by the compute chunk (berlin-class
+# K=496: ~71 KB per agent at 9 beam blocks, ~4.7 GB at 65k agents).
+# Batches whose gathered rows would exceed an eighth of the device's
+# memory are split into agent chunks executed sequentially by
+# ``lax.map`` (values identical: rays are independent). On one H100
+# (60 GB to a JAX process) that is 105k berlin agents: chunking the 32k
+# and 65k batches there only cost 2-4% (PERF.md), so they run in one
+# shot. Devices that report no memory limit use the fixed fallback.
+_CHUNK_BYTES_FALLBACK = 1.8e9
 
 
-def sector_table_arg(smap, mode: str):
-    """The ``table`` argument for ``raycast_sectors[_ids]`` given the
-    resolved sweep mode: fused-kernel modes take the (table, table_ck)
-    pair (sweep_sorted_tiles_fused reads the chunk-grouped layout), all
-    other modes the plain table."""
-    kind = mode.split("@", 1)[0]
-    if kind.startswith("sorted_plf"):
-        if getattr(smap, "table_ck", None) is None:
-            raise ValueError(
-                f"mode {mode!r} needs the fused-kernel table layout; this "
-                "map was built without one (capacity < "
-                "the _AUTO_MIN_K crossover, or a pre-round-5 pickle) — "
-                "rebuild via build_sector_map or attach "
-                "maps.sectors.build_table_ck(table)")
-        return (smap.table, smap.table_ck)
-    return smap.table
+def _chunk_bytes_budget() -> float:
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return limit / 8.0 if limit else _CHUNK_BYTES_FALLBACK
 
 
-def _auto_agent_chunk(a_n: int, nblk: int, k: int, mode: str) -> int:
+def _auto_agent_chunk(a_n: int, nblk: int, k: int) -> int:
     """Agents per chunk (0 = no chunking) for a batch of ``a_n`` agents,
-    ``nblk`` beam blocks, capacity-``k`` table swept in ``mode``.
-
-    The fused-gather kernel (sorted_plf*) has an O(table) working set —
-    its only large-batch limit is the scalar-prefetch SMEM budget for
-    the per-row ids (1 MB; 32k x 9 blocks = 1.2 MB overflows, measured)
-    — so it chunks at a fixed 8192 agents (ids 295 KB at nblk=9; divides
-    the 32k/65k configs exactly; measured within 3% of the unchunked
-    4096 rate on v5e). The XLA sweeps chunk on the pre-gather bytes
-    budget instead."""
-    def balanced(cap):
-        # smallest chunk count that fits under ``cap``, then the chunk
-        # size balanced across chunks (128-aligned = the kernel's tile
-        # rows) — a 33k batch pads ~1% instead of the 24% a fixed
-        # cap-sized chunk would
-        if a_n <= cap:
-            return 0
-        nc = -(-a_n // cap)
-        return min(cap, -(-(-(-a_n // nc)) // 128) * 128)
-
-    if mode.startswith("sorted_plf"):
-        # scalar-prefetch SMEM holds chunk*nblk int32 ids (1 MB budget;
-        # 295k rows measured to overflow). 73728 rows = the measured-good
-        # 8192x9 flagship point, scaled down for wider beam configs.
-        rows_cap = 73728
-        return balanced(max(128, (rows_cap // max(nblk, 1))
-                            // 128 * 128))
+    ``nblk`` beam blocks and a capacity-``k`` table: the pre-gathered
+    (NBLK, 4, K) rows of one chunk stay under ``_chunk_bytes_budget()``."""
     per_agent = nblk * 4 * k * 4.0          # (NBLK, 4, K) f32 rows
-    if mode.startswith("sorted_pl"):
-        per_agent *= 3.0                    # + slot-major transpose bufs
-    cap = int(_CHUNK_BYTES_BUDGET // per_agent)
+    cap = int(_chunk_bytes_budget() // per_agent)
     cap = max(2048, (cap // 1024) * 1024)
-    return balanced(cap)
+    if a_n <= cap:
+        return 0
+    # smallest chunk count that fits under ``cap``, then the chunk size
+    # balanced across chunks (128-aligned) — a 33k batch pads ~1%
+    # instead of the 24% a fixed cap-sized chunk would
+    nc = -(-a_n // cap)
+    return min(cap, -(-(-(-a_n // nc)) // 128) * 128)
 
 
 def _padded_offsets(num_beams, fov, bb):
-    """The (B_padded,) beam-offset row: padding the offset row is free
-    vs real HBM copies for six (A, B) ray arrays inside the raycast
-    (docs/BOTTLENECK.md — 46% of the flagship ray budget)."""
+    """The (B_padded,) beam-offset row: padding the offset row is free,
+    where padding six (A, B) ray arrays inside the raycast would be real
+    device-memory copies."""
     from .common import beam_angles
     nblk = -(-num_beams // bb)
     b_pad = nblk * bb - num_beams
@@ -788,8 +630,8 @@ def _padded_offsets(num_beams, fov, bb):
     return offs
 
 
-def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
-                auto_chunk, use_pallas, interpret, grp, mode):
+def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb, mode,
+                chunk: int = 64):
     """Raycast + extent mask for one (A, 3) pose chunk whose beam fan
     (ct, st) was built OUTSIDE the chunk loop — one fusion context, so
     chunked and unchunked execution stay bit-identical (XLA may
@@ -799,89 +641,68 @@ def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
     xb = jnp.broadcast_to(poses2[:, 0:1], ct.shape)
     yb = jnp.broadcast_to(poses2[:, 1:2], ct.shape)
     r = raycast_sectors(
-        sector_table_arg(smap, mode), smap.meta, smap.tiles_shape,
+        smap.table, smap.meta, smap.tiles_shape,
         smap.tile_size, smap.tile_origin, smap.ns, smap.kv_sec,
         poses2[:, 0], poses2[:, 1],
-        xb, yb, ct, st, max_range, bb, auto_chunk or 64,
-        bool(use_pallas), bool(interpret), int(grp), mode)[:, :num_beams]
+        xb, yb, ct, st, max_range, bb, chunk, mode)[:, :num_beams]
     return apply_extent_mask(r, poses2[:, 0], poses2[:, 1], smap.extent,
                              max_range)
+
+
+def _chunked(fn, agent_chunk, a_n, num_beams, *arrays):
+    """Run ``fn(*arrays)`` over agent chunks of ``agent_chunk`` (edge-
+    replicated pad tail) via ``lax.map``, or in one shot when the batch
+    fits. Every array's leading axis is the agent axis; ``fn`` returns
+    (A, num_beams)."""
+    if not agent_chunk or a_n <= agent_chunk:
+        return fn(*arrays)
+    nc = -(-a_n // agent_chunk)
+    pad = nc * agent_chunk - a_n
+    if pad:
+        arrays = [jnp.concatenate(
+            [a, jnp.broadcast_to(a[-1:], (pad,) + a.shape[1:])])
+            for a in arrays]
+    r = jax.lax.map(
+        lambda sl: fn(*sl),
+        tuple(a.reshape((nc, agent_chunk) + a.shape[1:]) for a in arrays))
+    return r.reshape(nc * agent_chunk, num_beams)[:a_n]
 
 
 def scan_poses_sectors(smap, poses, num_beams: int = 1080,
                        fov: float = 4.712388980384690, max_range=10.0,
                        theta_discretization: int = 0, bb=None,
-                       use_pallas=None, interpret=None,
-                       grp: int = 8, mode: str = "auto",
+                       mode: str = "auto",
                        agent_chunk=None) -> jnp.ndarray:
     """Full lidar scans for poses (..., 3) via the sector backend.
 
-    ``mode="auto"`` (default) resolves per table/backend
-    (resolve_sector_mode): large-capacity tables on a real TPU take the
-    ragged sorted-tile Pallas kernel (mean-bound work; berlin 3.9e8+ vs
-    dense 2.34e8 rays/s), everything else the dense XLA sweep. All modes
-    are value-identical (tests/test_sectors.py).
+    ``mode="auto"`` (default) resolves to the sweep measured fastest on
+    the card (resolve_sector_mode). All modes are value-identical
+    (tests/test_sectors.py).
 
     ``agent_chunk``: agents per sequential execution chunk for very
     large batches (``None`` = auto-derive from the table capacity so the
-    pre-gathered cull working set stays HBM-friendly — the 32k/65k
+    pre-gathered cull working set stays bounded — the 32k/65k
     single-device configs; ``0`` = never chunk). Values are identical
     either way (rays are independent); gradients flow through the
     chunked path unchanged (lax.map differentiates as a scan).
-
-    ``use_pallas=None`` keeps the per-(agent, block) ids-routed Pallas
-    kernel OFF — measured on TPU v5e (round 3, scripts/bench_sectors.py):
-    berlin 4096x1080 sector XLA 1.82e8 rays/s fwd vs that kernel 4.3e7
-    (each program owns a single (1, 128) ray block and a ~109-segment
-    mean list, so program/DMA overhead dominates). It stays available
-    for A/B and parity testing; the sorted-tile kernel (mode) is the
-    one that wins.
     """
-    if use_pallas is None:
-        use_pallas = False
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     bb = sector_block_width(smap, num_beams, fov, bb)
-    if use_pallas:
-        # the grp-kernel A/B route ignores sweep modes; keep the table
-        # argument plain (fused modes pass a (table, table_ck) pair the
-        # grp kernel cannot take)
-        mode, auto_chunk = "dense", None
-    else:
-        mode, auto_chunk = resolve_sector_mode(
-            mode, smap.table.shape[2], bb, bool(interpret), smap.kv_sec,
-            getattr(smap, "table_ck", None) is not None)
+    mode = resolve_sector_mode(mode)
     poses = jnp.asarray(poses)
     batch = poses.shape[:-1]
     poses2 = poses.reshape(-1, 3)
     a_n = poses2.shape[0]
     nblk = -(-num_beams // bb)
     if agent_chunk is None:
-        agent_chunk = _auto_agent_chunk(a_n, nblk, smap.table.shape[2],
-                                        mode)
+        agent_chunk = _auto_agent_chunk(a_n, nblk, smap.table.shape[2])
     from .common import fan_cos_sin
     offs = _padded_offsets(num_beams, fov, bb)
     # the fan is built ONCE for the whole batch (see _scan_chunk note)
     ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
-    args = (smap, num_beams, max_range, bb, auto_chunk, use_pallas,
-            interpret, grp, mode)
-    if agent_chunk and a_n > agent_chunk:
-        nc = -(-a_n // agent_chunk)
-        pad = nc * agent_chunk - a_n
-        if pad:
-            rep = lambda a: jnp.concatenate(
-                [a, jnp.broadcast_to(a[-1:], (pad,) + a.shape[1:])])
-            poses2, ct, st = rep(poses2), rep(ct), rep(st)
-        bp = ct.shape[1]
-        r = jax.lax.map(
-            lambda sl: _scan_chunk(args[0], sl[0], sl[1], sl[2],
-                                   *args[1:]),
-            (poses2.reshape(nc, agent_chunk, 3),
-             ct.reshape(nc, agent_chunk, bp),
-             st.reshape(nc, agent_chunk, bp)))
-        r = r.reshape(nc * agent_chunk, num_beams)[:a_n]
-    else:
-        r = _scan_chunk(args[0], poses2, ct, st, *args[1:])
+    r = _chunked(
+        lambda p, c, s: _scan_chunk(smap, p, c, s, num_beams, max_range,
+                                    bb, mode),
+        agent_chunk, a_n, num_beams, poses2, ct, st)
     return r.reshape(*batch, num_beams)
 
 
@@ -900,8 +721,6 @@ def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
     pose/direction cotangents via the sector backend's analytic O(rays)
     VJP, plus the implicit-function map cotangent into ``edf`` attached at
     each hit (ops/raymarch_diff.with_map_gradient — 4 bilinear taps/ray).
-    Measured v5e round 3: 1.66e7 rays/s fwd+bwd at 512x1080 — 385x the
-    bilinear-march autodiff reference.
 
     ``edf``: the euclidean distance field the map cotangent lands in
     (e.g. ``track.edf``; grid convention of ops/raymarch_xla). It must
@@ -922,7 +741,7 @@ def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
     r = raycast_sectors(
         smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
         smap.tile_origin, smap.ns, smap.kv_sec, poses2[:, 0], poses2[:, 1],
-        xb, yb, ct, st, max_range, bb, 64, False, False)[:, :num_beams]
+        xb, yb, ct, st, max_range, bb, 64)[:, :num_beams]
     r = apply_extent_mask(r, poses2[:, 0], poses2[:, 1], smap.extent,
                           max_range)
     r = with_map_gradient(edf, r, xb[:, :num_beams], yb[:, :num_beams],
@@ -931,90 +750,58 @@ def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
     return r.reshape(*batch, num_beams)
 
 
-def _ids_sweep(table, meta, ids, kv_sec, x, y, cos_t, sin_t, chunk,
-               mode, interpret):
+def _ids_sweep(table, meta, ids, kv_sec, x, y, cos_t, sin_t, chunk, mode):
     """Shared sweep dispatch for the precomputed-ids path: ray args
     (A, NBLK, BB). Returns (bv, bh) shaped (A, NBLK, BB)."""
-    from .raycast_segments import _ray_invs
     inv_c, inv_s = _ray_invs(cos_t, sin_t)
-    kind, tile_rows, do_sort, lazy = _parse_mode(mode)
-    if kind == "dense":
-        return _sweep_xla(table, kv_sec, ids, x, y, cos_t, sin_t, inv_c,
-                          inv_s, chunk)
     a_n, nblk, bb = jnp.shape(x)
     flat = [v.reshape(a_n * nblk, bb)
             for v in (x, y, cos_t, sin_t, inv_c, inv_s)]
-    if kind.startswith("sorted_plf"):
-        from .raycast_pallas import sweep_sorted_tiles_fused
-        tab, tck = table
-        bv, bh = sweep_sorted_tiles_fused(
-            tck, meta, kv_sec, tab.shape[2], ids.reshape(-1),
-            flat[0][:, 0], flat[1][:, 0], *flat[2:], chunk=chunk,
-            tile_rows=tile_rows,
-            transpose_mode=("mxu" if kind.startswith("sorted_plfm")
-                            else "xlu"),
-            fetch=("ragged" if kind.endswith("r") else "full"),
-            interpret=interpret)
-    elif kind == "sorted_pl":
-        from .raycast_pallas import sweep_sorted_tiles_pallas
-        bv, bh = sweep_sorted_tiles_pallas(
-            table, meta, kv_sec, ids.reshape(-1), flat[0][:, 0],
-            flat[1][:, 0], *flat[2:], chunk=chunk,
-            tile_rows=tile_rows, interpret=interpret)
-    elif kind in ("sorted_pt", "sorted_ptt"):
-        bv, bh = _sweep_xla_sorted_pt(
-            table, meta, kv_sec, ids.reshape(-1), *flat, chunk=chunk,
-            tile_rows=tile_rows, do_sort=do_sort,
-            transpose_chunks=(kind == "sorted_ptt"))
-    else:
-        bv, bh = _sweep_xla_sorted(
-            table, meta, kv_sec, ids.reshape(-1), *flat, chunk=chunk,
-            tile_rows=tile_rows, do_sort=do_sort, lazy_gather=lazy)
+    bv, bh = _sweep_flat(table, meta, kv_sec, ids.reshape(-1), *flat,
+                         chunk, mode)
     unflat = lambda v: v.reshape(a_n, nblk, bb)
     return unflat(bv), unflat(bh)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 8, 9, 10, 11))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 8, 9, 10))
 def raycast_sectors_ids(table, meta, ids, kv_sec, x, y, cos_t, sin_t,
                         max_range: float = 10.0, chunk: int = 64,
-                        mode: str = "dense", interpret: bool = False):
+                        mode: str = "dense"):
     """Sector sweep over PRECOMPUTED list ids (multi-map serving path).
 
     ray args are (A, NBLK, BB); ``ids`` (A, NBLK) rows into ``table``.
     Same values/VJP as ``raycast_sectors`` — only the id routing differs
     (per-agent map offsets, maps/sectors.StackedSectorMap). ``mode``
-    takes the same sweep family as ``raycast_sectors`` (the sorted-tile
-    kernel works unchanged here: ids are already rows into the stacked
+    takes the same sweep family as ``raycast_sectors`` (the sorted
+    sweeps work unchanged here: ids are already rows into the stacked
     table, so multi-track batches sort/tile across ALL their maps at
     once). Returns (A, NBLK*BB) clamped ranges.
     """
     bv, bh = _ids_sweep(table, meta, ids, kv_sec, x, y, cos_t, sin_t,
-                        chunk, mode, interpret)
+                        chunk, mode)
     a_n = x.shape[0]
     return jnp.minimum(jnp.minimum(bv, bh), max_range).reshape(a_n, -1)
 
 
 def _rsi_fwd(table, meta, ids, kv_sec, x, y, cos_t, sin_t, max_range,
-             chunk, mode, interpret):
+             chunk, mode):
     bv, bh = _ids_sweep(table, meta, ids, kv_sec, x, y, cos_t, sin_t,
-                        chunk, mode, interpret)
+                        chunk, mode)
     a_n = x.shape[0]
     r = jnp.minimum(jnp.minimum(bv, bh), max_range).reshape(a_n, -1)
     isv = (bv <= bh).reshape(a_n, -1)
     hit = (jnp.minimum(bv, bh) < max_range).reshape(a_n, -1)
-    tshape = jax.tree.map(jnp.shape, table)     # pair in fused modes
-    return r, (tshape, jnp.shape(meta), jnp.shape(ids),
+    return r, (jnp.shape(table), jnp.shape(meta), jnp.shape(ids),
                jnp.shape(x), r, isv, hit, cos_t, sin_t)
 
 
-def _rsi_bwd(kv_sec, max_range, chunk, mode, interpret, res, g):
+def _rsi_bwd(kv_sec, max_range, chunk, mode, res, g):
     from .raycast_grad import _winner_vjp
     tshape, mshape, ishape, rshape, r, isv, hit, cos_t, sin_t = res
     gx, gy, gct, gst = _winner_vjp(
         r, isv, hit, cos_t.reshape(r.shape), sin_t.reshape(r.shape), g)
     f0 = lambda s: np.zeros(s, jax.dtypes.float0)
-    t_ct = _table_zero_ct(mode, tshape)
-    return (t_ct, f0(mshape), f0(ishape),
+    return (jnp.zeros(tshape, jnp.float32), f0(mshape), f0(ishape),
             gx.reshape(rshape), gy.reshape(rshape), gct.reshape(rshape),
             gst.reshape(rshape))
 
@@ -1058,27 +845,19 @@ def scan_poses_sectors_multi(stack, map_ids, poses, num_beams: int = 1080,
                              fov: float = 4.712388980384690,
                              max_range=10.0, theta_discretization: int = 0,
                              bb=None, mode: str = "auto",
-                             interpret=None,
                              agent_chunk=None) -> jnp.ndarray:
     """Multi-track batched scan: agent i scans on map ``map_ids[i]``.
 
     ``agent_chunk``: as ``scan_poses_sectors`` — auto-derived chunking
-    for very large batches (None = auto; 0 = off), which also bounds
-    the fused kernel's per-row ids scalar-prefetch SMEM (1 MB budget;
-    a 32k x 9-block un-chunked batch overflows it).
+    for very large batches (None = auto; 0 = off).
 
     ``stack``: maps/sectors.StackedSectorMap. One fused sweep serves the
     whole agent batch across all stacked tracks — per-agent map routing is
     a handful of O(agents) scalar gathers on top of the single-map path.
-    ``mode="auto"`` resolves exactly as ``scan_poses_sectors`` (the
-    sorted-tile kernel for large-capacity stacks on a real TPU).
+    ``mode="auto"`` resolves exactly as ``scan_poses_sectors``.
     """
     bb = sector_block_width(stack, num_beams, fov, bb)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    mode, auto_chunk = resolve_sector_mode(
-        mode, stack.table.shape[2], bb, bool(interpret), stack.kv_sec,
-        getattr(stack, "table_ck", None) is not None)
+    mode = resolve_sector_mode(mode)
     poses = jnp.asarray(poses)
     batch = poses.shape[:-1]
     poses2 = poses.reshape(-1, 3)
@@ -1086,42 +865,23 @@ def scan_poses_sectors_multi(stack, map_ids, poses, num_beams: int = 1080,
     a_n = poses2.shape[0]
     nblk = -(-num_beams // bb)
     if agent_chunk is None:
-        agent_chunk = _auto_agent_chunk(a_n, nblk, stack.table.shape[2],
-                                        mode)
+        agent_chunk = _auto_agent_chunk(a_n, nblk, stack.table.shape[2])
     from .common import fan_cos_sin
     offs = _padded_offsets(num_beams, fov, bb)
     # fan built ONCE for the whole batch (see _scan_chunk note)
     ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
-    args = (stack, num_beams, max_range, bb, auto_chunk, interpret, mode)
-    if agent_chunk and a_n > agent_chunk:
-        nc = -(-a_n // agent_chunk)
-        pad = nc * agent_chunk - a_n
-        if pad:
-            rep = lambda a: jnp.concatenate(
-                [a, jnp.broadcast_to(a[-1:], (pad,) + a.shape[1:])])
-            poses2, mid, ct, st = (rep(poses2), rep(mid), rep(ct),
-                                   rep(st))
-        bp = ct.shape[1]
-        r = jax.lax.map(
-            lambda sl: _scan_chunk_multi(args[0], sl[0], sl[1], sl[2],
-                                         sl[3], *args[1:]),
-            (poses2.reshape(nc, agent_chunk, 3),
-             mid.reshape(nc, agent_chunk),
-             ct.reshape(nc, agent_chunk, bp),
-             st.reshape(nc, agent_chunk, bp)))
-        r = r.reshape(nc * agent_chunk, num_beams)[:a_n]
-    else:
-        r = _scan_chunk_multi(args[0], poses2, mid, ct, st, *args[1:])
+    r = _chunked(
+        lambda p, m, c, s: _scan_chunk_multi(stack, p, m, c, s, num_beams,
+                                             max_range, bb, mode),
+        agent_chunk, a_n, num_beams, poses2, mid, ct, st)
     return r.reshape(*batch, num_beams)
 
 
 def _scan_chunk_multi(stack, poses2, mid, ct, st, num_beams, max_range,
-                      bb, auto_chunk, interpret, mode):
+                      bb, mode):
     """Stacked raycast + per-agent extent mask for one (A, 3) pose
-    chunk; the fan (ct, st) rides in pre-built (chunking bounds the
-    fused kernel's per-row ids scalar-prefetch SMEM exactly as in
-    ``scan_poses_sectors``, and the shared fan keeps chunked execution
-    bit-identical; code-review r5)."""
+    chunk; the fan (ct, st) rides in pre-built so chunked execution stays
+    bit-identical (see ``_scan_chunk``)."""
     nblk = ct.shape[1] // bb
     a_n = poses2.shape[0]
     xb = jnp.broadcast_to(poses2[:, 0:1], ct.shape)
@@ -1130,9 +890,8 @@ def _scan_chunk_multi(stack, poses2, mid, ct, st, num_beams, max_range,
                                   ct, st, num_beams, bb)
     shp = (a_n, nblk, bb)
     r = raycast_sectors_ids(
-        sector_table_arg(stack, mode), stack.meta, ids, stack.kv_sec,
+        stack.table, stack.meta, ids, stack.kv_sec,
         xb.reshape(shp), yb.reshape(shp), ct.reshape(shp),
-        st.reshape(shp), max_range,
-        auto_chunk or 64, mode, bool(interpret))[:, :num_beams]
+        st.reshape(shp), max_range, 64, mode)[:, :num_beams]
     # per-agent extent mask (reference out-of-map => max_range)
     return jnp.where(inside[:, None], r, max_range)

@@ -3,8 +3,8 @@
 Companion to ``maps/segments.py`` (see its module doc for the semantics
 contract vs the reference DT march). Each ray's range is the min over all
 boundary segments of the exact ray/segment intersection distance — a dense
-(rays x segments) elementwise computation + min-reduction that maps onto
-the TPU VPU with no gathers, unlike the DT march (``raymarch_xla.py``).
+(rays x segments) elementwise computation + min-reduction with no
+gathers, unlike the DT march (``raymarch_xla.py``).
 
 Two variants:
   * ``raycast_all``: every ray against the full padded segment set.
@@ -57,7 +57,7 @@ def _ray_invs(cos_t, sin_t):
 
 
 def _min_t_vchunk(p, lo, hi, x, y, sin_t, inv_c):
-    """Vertical-only chunk: x = p planes. ~9 VPU ops/pair, no orientation
+    """Vertical-only chunk: x = p planes. ~9 vector ops/pair, no orientation
     selects (split layout, maps/segments.py::split_pad_segments)."""
     t = (p - x[..., None]) * inv_c[..., None]
     a = y[..., None] + t * sin_t[..., None]
@@ -100,7 +100,8 @@ def _min_t_chunk(seg_chunk, x, y, cos_t, sin_t, inv_c, inv_s, max_range):
 
     Ray args have any common shape S; returns shape S. The (S..., KC)
     intermediate stays inside one XLA fusion (elementwise -> reduce), so it
-    is never materialized in HBM. ~10 VPU ops per (ray, segment) pair.
+    is never materialized in device memory. ~10 vector ops per (ray,
+    segment) pair.
     """
     p = seg_chunk[0]
     lo = seg_chunk[1]

@@ -3,10 +3,8 @@
 Why: the ``edf_bilinear`` backend (raymarch_xla.py, interp="bilinear") is
 the exact-autodiff reference for ∂range/∂map, but reverse-mode through a
 256-step march materializes a 256-long scatter-add chain into the map
-cotangent — measured 4.3e4 rays/s fwd+bwd on TPU v5e (BENCH_r02), four
-orders below the forward paths. Gathers/scatters are the TPU's weak op
-(~1.4e8 elem/s regardless of table size, CLAUDE.md), so the fix is to
-remove them from the backward entirely:
+cotangent, orders of magnitude slower than the forward paths. The fix is
+to remove the gathers/scatters from the backward almost entirely:
 
   * FORWARD: nearest-sample sphere trace (ONE gather per step instead of
     bilinear's four; in free space the nearest EDF sample is >= one cell,
@@ -270,8 +268,7 @@ def with_map_gradient(edf, r, x0, y0, cos_t, sin_t, resolution, origin_xy,
                       dedup: bool = False):
     """Attach a ∂range/∂map cotangent to ranges from ANY exact forward.
 
-    The fast raycasts (sectors/segments — 9.5e8 rays/s fwd+bwd on v5e vs
-    7.2e5 for the full differentiable march) compute ranges from compiled
+    The fast raycasts (sectors/segments) compute ranges from compiled
     GEOMETRY, so autodiff cannot reach the map. But their hit surface (the
     occupied-cell boundary) coincides with the EDF's bilinear
     tau = max(eps, res/2) level set on walls (see _surface_level), so the
@@ -292,9 +289,9 @@ def with_map_gradient(edf, r, x0, y0, cos_t, sin_t, resolution, origin_xy,
     ``march_rays_implicit``, which differentiates the same surface — their
     map cotangents are compared directly in tests/test_raymarch_diff.py.
 
-    ``dedup=True`` switches the backward to the sort-by-cell form
-    (VERDICT r4 task 4): rays are argsorted by their hit cell's base
-    index once, then each tap is accumulated with
+    ``dedup=True`` switches the backward to the sort-by-cell form:
+    rays are argsorted by their hit cell's base index once, then each
+    tap is accumulated with
     ``jax.ops.segment_sum(indices_are_sorted=True)`` — the same values
     up to f32 summation order (adjacent beams hit the same cells, so
     sorted accumulation replaces most of the element-serial scatter).

@@ -1,21 +1,19 @@
 """Distance-transform ray-march on XLA: the scan simulator's hot loop.
 
-TPU-native replacement for the reference's native per-beam ray-march
+Batched replacement for the reference's native per-beam ray-march
 (SURVEY.md §3.3, lineage ``ScanSimulator2D::scan`` / ``trace_ray``). Design
-notes (measured on TPU v5e, see BASELINE.md):
+notes:
 
 * The reference's data-dependent ``while d > eps`` becomes a **fixed-trip
   ``lax.scan``** with an alive mask — all rays march in lockstep, finished
   rays step by zero. Static shapes, no divergence, no recompilation.
-* The inner gather ``edf[cell]`` uses XLA's native TPU gather. Measured on
-  v5e: ~1.4e8 gathered elements/s regardless of table size — TPUs have no
-  vector-gather hardware, so this backend is gather-bound at a few million
-  rays/s/chip. It is kept as the *reference-exact semantics* backend (every
-  DT step identical to the oracle) and as the ``∂range/∂map`` provider; the
-  throughput path is the dense segment-intersection backend in
-  ``raycast_segments.py`` / its Pallas kernel, which needs no gathers.
-  (Mosaic's ``dynamic_gather`` is restricted to single-vreg tables, so a
-  hand-written Pallas march cannot beat XLA's gather here either.)
+* The inner gather ``edf[cell]`` is one dependent gather per march step,
+  so this backend is gather-latency-bound. It is kept as the
+  *reference-exact semantics* backend (every DT step identical to the
+  oracle) and as the ``∂range/∂map`` provider; the exact-geometry path is
+  the segment-intersection family (``raycast_segments.py``,
+  ``raycast_sectors.py``), which needs no gathers in the hot loop. Which
+  is faster on the card is not measured yet.
 * Everything is shape-polymorphic over a leading ray batch: callers vmap /
   shard over (agents, beams) however they like; the op itself is written on
   flat ray vectors so sharding layouts stay trivial.

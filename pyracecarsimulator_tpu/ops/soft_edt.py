@@ -20,7 +20,7 @@ with exact euclidean steps (1, sqrt2) — the classic 3x3 chamfer mask, whose
 distances overestimate true euclidean by at most ~8% (worst at ~22.5 deg).
 ``min`` gives exact subgradients to the argmin chain (like maxpool), so
 autodiff yields the geodesic-path derivative. Each iteration is a cheap
-stencil (shifts + mins) — fully vectorized, TPU-friendly; ``iters`` bounds
+stencil (shifts + mins) — fully vectorized, no gathers; ``iters`` bounds
 the propagation radius in cells.
 """
 

@@ -12,7 +12,7 @@ SURVEY.md §3.3 (lineage ``ScanSimulator2D::scan`` / ``trace_ray``):
 
 Because the reference mount was empty (SURVEY.md provenance note), this
 oracle *is* the authoritative "reference CPU raycaster" for every allclose
-gate in BASELINE.md. It is deliberately loop-based and dependency-free so it
+gate in the tests and in ``chip_smoke.py``. It is deliberately loop-based and dependency-free so it
 can be audited line-by-line against the published upstream algorithm.
 
 A ``bilinear`` interpolation mode is added (no reference equivalent) as the

@@ -5,5 +5,3 @@ from .mesh import (make_mesh, make_sharded_scan, make_sharded_step,
 from .ringmap import make_ring_scan, shard_sector_table
 from .train import make_bptt_train_fn
 from . import multihost
-from .flags import (overlap_compiler_options, enable_collective_overlap,
-                    OVERLAP_COMPILER_OPTIONS)

@@ -4,21 +4,22 @@ SURVEY.md §5 "long-context analogue" names two layers: beam-axis
 sharding (parallel/mesh.py, the default — sector tables are small enough
 to replicate: levine 10.6 MB, berlin 130 MB) and, as the extension for
 maps that DON'T fit per-device (continent-scale grids, or hundreds of
-stacked tracks), a ring-pass of map shards between neighbors during the
-scan — the ring-attention analogue over ICI. This module is that
-extension.
+stacked tracks), a ring-pass of map shards between devices during the
+scan — the ring-attention analogue. This module is that extension.
 
 Design: the (L, 4, K) cull table is sharded by LIST ROWS over the
 ``beams`` mesh axis (S shards; each device holds L/S rows, memory /S).
 Rays stay put; the map moves: at ring step s, device d holds slab
 (d + s) mod S, copies the resident rows its rays need into a per-ray
-buffer, and ppermutes the slab to its ring neighbor. After S steps every
-ray has its cull list and ONE dense sweep (the factored
+buffer, and ppermutes the slab to the next device of the ring. After S
+steps every ray has its cull list and ONE dense sweep (the factored
 ``ops.raycast_sectors._sweep_gathered`` — identical arithmetic to the
-replicated path) produces the ranges. Collectives are S-1 neighbor
-ppermutes of L/S rows each = one full table traversal per scan riding
-ICI, overlappable with the per-step row-copy compute by XLA's
-latency-hiding scheduler (docs/OVERLAP.md).
+replicated path) produces the ranges. Collectives are S ppermutes of
+L/S rows each = one full table traversal per scan. The ring order is
+just the ``beams`` axis order: cards joined all to all (NVLink inside a
+host) reach every peer at the same rate, so no device order is
+preferred. XLA's latency-hiding scheduler may overlap each ppermute
+with the row-copy compute (docs/OVERLAP.md).
 
 Cost model (why this is the extension, not the default): the row-copy
 runs S times per scan (each step touches every ray row slot), so the

@@ -23,21 +23,8 @@ def make_rollout_fn(step_fn: Callable, policy: Callable, num_steps: int,
     """Build a REUSABLE compiled rollout: ``run(state0, key) ->
     (final_state, traj)``. Use this (not repeated ``rollout`` calls) when
     benchmarking or sweeping initial conditions — each ``rollout()`` call
-    builds a fresh jit closure and re-traces.
-
-    Constraint (ADVICE r4): the rollout jit carries the latency-hiding
-    compiler options itself, and JAX rejects ``compiler_options`` on
-    nested jits — so a ``step_fn`` from ``make_sharded_step`` must be
-    built with ``compiler_opts=False`` before being wrapped here. Steps
-    that carry the options are detected (``step.has_compiler_opts``) and
-    rejected with this explanation; steps from ``simulator.make_step_fn``
-    never carry them and need no flag."""
-    if getattr(step_fn, "has_compiler_opts", False):
-        raise ValueError(
-            "step_fn was built with make_sharded_step(compiler_opts=True) "
-            "— JAX rejects compiler_options on a jit traced into the "
-            "rollout's outer jit (which carries the overlap options "
-            "itself). Rebuild the step with compiler_opts=False.")
+    builds a fresh jit closure and re-traces. ``step_fn`` may come from
+    ``simulator.make_step_fn`` or ``parallel.mesh.make_sharded_step``."""
 
     def body(carry, t):
         state, ranges, k = carry
@@ -52,15 +39,7 @@ def make_rollout_fn(step_fn: Callable, policy: Callable, num_steps: int,
             rec["ranges"] = out.ranges
         return (out.state, out.ranges, k), rec
 
-    # the rollout jit is the TOP-LEVEL program, so the latency-hiding
-    # compiler options live here; a step built with make_sharded_step
-    # must pass compiler_opts=False before being wrapped (JAX rejects
-    # compiler_options on nested jits)
-    import functools
-    from .flags import overlap_compiler_options
-
-    @functools.partial(jax.jit,
-                       compiler_options=overlap_compiler_options() or None)
+    @jax.jit
     def run(state0, key=None):
         zero_ranges = jnp.zeros(state0.batch_shape + (num_beams,))
         (final, _, _), traj = jax.lax.scan(

@@ -7,15 +7,12 @@ that rolls the production simulation step forward ``num_steps`` steps
 under a parameterized policy, reverse-differentiates the rollout loss
 back through every step (dynamics, raycast — via the analytic O(rays)
 VJPs — and TTC latch), and applies an optax update. The same
-construction is what `bench.py`'s ``train_steps_s_*`` stages time on
-hardware (v5e: levine 2.25e6 trained agent-steps/s = 2.43e9 rays/s
-fwd+bwd; berlin 6.54e5 = 7.07e8 — BASELINE.md round 5) and what the
-driver's ``dryrun_multichip`` exercises over the sharded step.
+construction is what `bench.py`'s ``train_steps_s_*`` stages time and
+what ``__graft_entry__.dryrun_multichip`` exercises over the sharded
+step.
 
 Works with any step from ``simulator.make_step_fn`` (single device;
-agent-chunk aware) or ``parallel.mesh.make_sharded_step`` built with
-``compiler_opts=False`` (the train jit is the outer program; cf.
-``make_rollout_fn``'s constraint note).
+agent-chunk aware) or ``parallel.mesh.make_sharded_step``.
 """
 
 from __future__ import annotations
@@ -52,12 +49,6 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
     import optax
     if optimizer is None:
         optimizer = optax.sgd(1e-2)
-
-    if getattr(step_fn, "has_compiler_opts", False):
-        raise ValueError(
-            "step_fn carries compiler options (make_sharded_step default) "
-            "— JAX rejects compiler_options on a jit traced into the "
-            "train fn's outer jit. Rebuild with compiler_opts=False.")
 
     def rollout_loss(params, state0, key):
         zero_ranges = jnp.zeros(state0.batch_shape + (num_beams,))

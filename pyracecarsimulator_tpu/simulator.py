@@ -7,7 +7,7 @@ facade's surface (SURVEY.md §1 L4 / §2a "Simulator facade": ``drive``,
 ``stop``), orchestrating input processing -> dynamics -> scan -> TTC
 (§3.2 call stack).
 
-TPU-native design: the real API is the *functional core* — ``make_step_fn``
+Design: the real API is the *functional core* — ``make_step_fn``
 returns one pure, jit-compiled function fusing the whole §3.2 step for an
 arbitrary agent batch; the OO wrapper is a thin convenience holding
 (state, key) and calling it. Rollouts should use ``parallel.rollout`` which
@@ -35,13 +35,18 @@ from .maps.contours import build_general_segment_map
 from .maps.sectors import SectorSegmentMap, build_sector_map
 from .ops.raymarch_xla import scan_poses as _scan_edf
 from .ops.raycast_segments import scan_poses_segments as _scan_segments
-from .ops.raycast_pallas import scan_poses_pallas as _scan_pallas
 from .ops.raycast_sectors import scan_poses_sectors as _scan_sectors
 from .ops.noise import add_scan_noise
 
 # backends whose map object is a compiled segment table (vs the EDF track)
-_SEGMENT_BACKENDS = ("segments", "segments_simplified", "segments_pallas",
-                     "sectors")
+_SEGMENT_BACKENDS = ("segments", "segments_simplified", "sectors")
+
+
+def _check_backend(backend: str) -> None:
+    if backend == "segments_pallas":
+        raise ValueError(
+            "backend 'segments_pallas' ran a Pallas kernel that has been "
+            "removed; use 'sectors' (same exact-boundary values) or 'auto'")
 
 
 
@@ -71,33 +76,28 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     """Load/accept a map and precompute everything the step needs.
 
     backend: "sectors" (per-(tile, angular-sector) culled exact-boundary
-    geometry — measured-fastest exact path on TPU on BOTH bundled maps,
-    scripts/bench_sectors.py round 3), "auto" (alias for "sectors"),
-    "segments" (dense exact geometry, no angular culling),
-    "segments_pallas" (dense geometry through the fused Pallas kernels),
-    "segments_simplified" (contour-simplified geometry: ~1-cell
-    tolerance), "edf" (reference-exact DT march), "edf_bilinear"
-    (smooth DT march for map gradients, exact autodiff), "edf_implicit"
-    (fast differentiable march: nearest-rule hits + implicit-function
-    VJP with the map cotangent — ~17x edf_bilinear's fwd+bwd).
+    geometry), "auto" (alias for "sectors"), "segments" (dense exact
+    geometry, no angular culling), "segments_simplified"
+    (contour-simplified geometry: ~1-cell tolerance), "edf"
+    (reference-exact DT march), "edf_bilinear" (smooth DT march for map
+    gradients, exact autodiff), "edf_implicit" (fast differentiable
+    march: nearest-rule hits + implicit-function VJP with the map
+    cotangent). Speeds on the card: not measured yet.
 
     tile_size: culling tile edge in meters; None = per-backend default
     (4.0 for the tiled dense sweeps, 2.0 for the sector backend whose
     parallax pad shrinks with the tile).
     """
+    _check_backend(backend)
     track = (load_builtin(track_or_name)
              if isinstance(track_or_name, str) else track_or_name)
     car = car or CarParams()
     scan = scan or ScanParams()
     sim = sim or SimParams()
     if backend == "auto":
-        # measured round 3 (TPU v5e, 4096x1080): the sector-culled XLA
-        # sweep is the fastest exact path on both bundled maps — levine
-        # 1.5e9 rays/s fwd (vs 6.1e8 dense pallas), berlin 2.0e8 (vs
-        # 7.1e7 tiled XLA / 4.1e7 tiled pallas); BASELINE.md round 3
         backend = "sectors"
     segmap = None
-    if backend in ("segments", "segments_pallas"):
+    if backend == "segments":
         segmap = build_segment_map(
             np.asarray(track.occupancy), track.resolution,
             (track.origin_x, track.origin_y),
@@ -135,7 +135,7 @@ def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
     ``agent_chunk`` (sector backend): agents per sequential execution
     chunk for very large single-device batches — ``None`` auto-derives
     from the table capacity so the pre-gathered cull working set stays
-    HBM-friendly (the 32k/65k configs), ``0`` disables chunking. Values
+    bounded (the 32k/65k configs), ``0`` disables chunking. Values
     are identical either way (ops/raycast_sectors.scan_poses_sectors).
 
     The map (segment table / EDF) is read from ``map_cell["map"]`` at call
@@ -147,8 +147,7 @@ def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
     ``scan(poses, edf) -> ranges`` instead: the production ∂range/∂map
     path — bit-identical forward values, and ``jax.grad`` w.r.t. the
     ``edf`` argument yields the implicit-function map cotangent at each
-    hit (ops/raycast_sectors.scan_poses_sectors_mapgrad; 1.66e7 rays/s
-    fwd+bwd on v5e vs 4.3e4 for bilinear-march autodiff). Pass
+    hit (ops/raycast_sectors.scan_poses_sectors_mapgrad). Pass
     ``bundle.track.edf`` (or any EDF of the same boundary, e.g. a map
     estimate being optimized). The ``edf_bilinear``/``edf_implicit``
     backends don't need this flag — their scans are differentiable in the
@@ -156,6 +155,7 @@ def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
     """
     if backend is None:
         backend = bundle.backend
+    _check_backend(backend)
     sc = bundle.scan
     theta_disc = sc.theta_discretization if sc.use_theta_table else 0
     if map_grad:
@@ -189,12 +189,6 @@ def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
         if map_cell is None:
             map_cell = {"map": bundle.segmap}
         from .maps.contours import GeneralSegmentMap
-        if (backend == "segments_pallas"
-                and isinstance(bundle.segmap, GeneralSegmentMap)):
-            raise ValueError(
-                "backend='segments_pallas' needs an exact SegmentMap "
-                "(build_sim(backend='segments_pallas')), but this bundle "
-                "carries simplified GeneralSegmentMap geometry")
         if backend == "sectors" or isinstance(bundle.segmap,
                                               SectorSegmentMap):
             if not (backend == "sectors"
@@ -211,14 +205,6 @@ def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
                     fov=sc.fov, max_range=sc.max_range,
                     theta_discretization=theta_disc,
                     agent_chunk=agent_chunk)
-            return scan_fn
-        if backend == "segments_pallas":
-
-            def scan_fn(poses):
-                return _scan_pallas(
-                    map_cell["map"], poses, num_beams=sc.num_beams,
-                    fov=sc.fov, max_range=sc.max_range,
-                    theta_discretization=theta_disc)
             return scan_fn
         if isinstance(bundle.segmap, GeneralSegmentMap):
             from .ops.raycast_general import scan_poses_general

@@ -3,7 +3,7 @@
 Reference parity: the reference keeps one ``CarState{x, y, theta, velocity,
 steer_angle, angular_velocity, slip_angle, st_dyn}`` struct per simulator
 instance (SURVEY.md §2a "Pose / state structs"; lineage file
-``car_state.hpp``). The TPU-native design is struct-of-arrays: every field is
+``car_state.hpp``). The design here is struct-of-arrays: every field is
 a ``(...)``-batched jnp array so that ``vmap``/sharding over an agent axis is
 the natural layout, and the whole state is a pytree usable with ``lax.scan``,
 ``jax.grad``, orbax checkpointing, and ``shard_map`` out of the box.

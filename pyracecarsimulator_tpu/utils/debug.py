@@ -1,5 +1,5 @@
 """On-device sanity guards (SURVEY.md §5 "Race detection / sanitizers" row:
-the TPU-native analogues are checkify/NaN guards, not thread sanitizers —
+the analogues here are checkify/NaN guards, not thread sanitizers —
 there are no data races in a pure-functional step).
 
 Usage:

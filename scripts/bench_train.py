@@ -1,13 +1,12 @@
 """Training-step throughput: value_and_grad through a T-step rollout.
 
 The framework's defining capability — BPTT through the full production
-step (input proc -> dynamics -> sector scan -> TTC latch) — had
-correctness evidence everywhere (FD-checked, tests/test_rollout_grad.py)
-but no hardware perf number (VERDICT r4 missing #1). This measures it:
+step (input proc -> dynamics -> sector scan -> TTC latch) — is
+FD-checked in tests/test_rollout_grad.py; this measures its rate:
 a linear scan->steer policy W (B,) drives a T-step ``lax.scan`` rollout
 at A x B; the loss is the mean range over all steps; the timed unit is
 ``value_and_grad`` w.r.t. W (policy-parameter cotangents, which BPTT
-chains through every step's state). Standard round-3 discipline: REPS
+chains through every step's state). Timing discipline: REPS
 perturbed in-program reps inside one jit, T3-T1 difference estimator.
 
 Usage: python scripts/bench_train.py [map] [T] [reps]
@@ -78,11 +77,9 @@ def main():
     T = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     reps = int(sys.argv[3]) if len(sys.argv) > 3 else 10
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    except Exception:
-        pass
+    from pyracecarsimulator_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     import jax.numpy as jnp
     from pyracecarsimulator_tpu.config import ScanParams, SimParams
     from pyracecarsimulator_tpu.maps.loader import load_builtin

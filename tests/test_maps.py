@@ -3,6 +3,7 @@
 import os
 
 import numpy as np
+import pytest
 
 from pyracecarsimulator_tpu.maps.loader import (
     TrackMap, add_obstacle, build_track_map, load_builtin, load_map_yaml,
@@ -78,3 +79,54 @@ def test_add_obstacle_rebuilds_edf(small_track):
     edf1 = np.asarray(t2.edf)
     assert edf1[iy, ix] == 0.0
     assert edf0[iy, ix] > 0.5
+
+
+_BUNDLED_YAML = {
+    "levine": {"image": "levine.pgm", "resolution": 0.05,
+               "origin": [-32.5, -32.5, 0.0], "negate": 0,
+               "occupied_thresh": 0.65, "free_thresh": 0.196},
+    "berlin": {"image": "berlin.pgm", "resolution": 0.05,
+               "origin": [-30.0, -30.0, 0.0], "negate": 0,
+               "occupied_thresh": 0.65, "free_thresh": 0.196},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BUNDLED_YAML))
+def test_flat_yaml_parser_bundled(name):
+    from pyracecarsimulator_tpu.maps.loader import ASSETS_DIR, parse_map_yaml
+    with open(os.path.join(ASSETS_DIR, f"{name}.yaml")) as f:
+        assert parse_map_yaml(f.read()) == _BUNDLED_YAML[name]
+
+
+@pytest.mark.parametrize("text,want", [
+    ("image: 'my map.pgm'  # quoted, trailing comment\n",
+     {"image": "my map.pgm"}),
+    ('# header\n\nimage: "m.png"\nnegate: 1\n',
+     {"image": "m.png", "negate": 1}),
+    ("resolution: 5e-2\norigin: [ -1, 2.5 , 0 ]\n",
+     {"resolution": 0.05, "origin": [-1, 2.5, 0]}),
+    ("origin: []\nfree_thresh: .25\n", {"origin": [], "free_thresh": 0.25}),
+])
+def test_flat_yaml_parser_edge_cases(text, want):
+    from pyracecarsimulator_tpu.maps.loader import parse_map_yaml
+    assert parse_map_yaml(text) == want
+
+
+@pytest.mark.parametrize("text", ["origin:\n  - 1.0\n", "just text\n"])
+def test_flat_yaml_parser_rejects_non_flat(text):
+    from pyracecarsimulator_tpu.maps.loader import parse_map_yaml
+    with pytest.raises(ValueError, match="line"):
+        parse_map_yaml(text)
+
+
+def test_builtin_loads_without_pyyaml(monkeypatch):
+    """The main path needs no pyyaml: with it unimportable, the bundled
+    map loads through the flat parser to the same TrackMap."""
+    import sys
+    ref = load_builtin("levine")
+    monkeypatch.setitem(sys.modules, "yaml", None)     # import yaml fails
+    t = load_builtin("levine")
+    assert (t.resolution, t.origin_x, t.origin_y) == (
+        ref.resolution, ref.origin_x, ref.origin_y)
+    np.testing.assert_array_equal(np.asarray(t.occupancy),
+                                  np.asarray(ref.occupancy))

@@ -252,8 +252,7 @@ def test_with_map_gradient_matches_implicit(field):
 
 def test_wmg_dedup_matches_scatter(field):
     """Sort-by-cell segment-sum backward (dedup=True) produces the same
-    map cotangent as the scatter-add form up to f32 summation order
-    (VERDICT r4 task 4)."""
+    map cotangent as the scatter-add form up to f32 summation order."""
     from pyracecarsimulator_tpu.ops.raymarch_diff import with_map_gradient
     occ, edf, org, hw = field
     x0, y0, ct, st = _rays(field, n=512, seed=5)

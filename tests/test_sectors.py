@@ -57,50 +57,9 @@ def _oracle(segs, poses, num_beams):
 def test_xla_matches_oracle(blobby):
     occ, res, org, smap, segs, poses = blobby
     r = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                           max_range=MAXR, bb=64, use_pallas=False)
+                           max_range=MAXR, bb=64)
     np.testing.assert_allclose(np.asarray(r), _oracle(segs, poses, 540),
                                atol=2e-5)
-
-
-def test_pallas_bitexact_vs_xla(blobby):
-    occ, res, org, smap, segs, poses = blobby
-    r_x = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=128, use_pallas=False)
-    r_p = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=128, use_pallas=True,
-                             interpret=True)
-    assert np.array_equal(np.asarray(r_x), np.asarray(r_p))
-
-
-def test_pallas_group_size_invariance(blobby):
-    """The grouped kernel (one grid step = grp ray rows, each with its own
-    cull list) must be bit-exact vs the XLA sweep for any group size,
-    including grp that doesn't divide the row count (exercises the
-    replicated-row padding path: 24 poses x 5 blocks = 120 rows, grp=7
-    pads 6 rows)."""
-    occ, res, org, smap, segs, poses = blobby
-    r_x = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=128, use_pallas=False)
-    for grp in (1, 7, 16):
-        r_p = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                                 max_range=MAXR, bb=128, use_pallas=True,
-                                 interpret=True, grp=grp)
-        assert np.array_equal(np.asarray(r_x), np.asarray(r_p)), grp
-
-
-def test_pallas_bb256_rows2_bitexact(blobby):
-    """bb=256 -> rows=2 128-lane rows per block: exercises the rows>1
-    Pallas routing (flatten to (A*NBLK*rows, LANES) + jnp.repeat of ids,
-    raycast_sectors._fwd_impl) which no other test covered (ADVICE r3 #3).
-    A reshape/repeat ordering bug there would ship unseen. 1080 beams so
-    bb=256 stays within blobby's block_half=0.62 (need = 128*spacing)."""
-    occ, res, org, smap, segs, poses = blobby
-    r_x = scan_poses_sectors(smap, poses[:6], num_beams=1080, fov=FOV,
-                             max_range=MAXR, bb=256, use_pallas=False)
-    r_p = scan_poses_sectors(smap, poses[:6], num_beams=1080, fov=FOV,
-                             max_range=MAXR, bb=256, use_pallas=True,
-                             interpret=True)
-    assert np.array_equal(np.asarray(r_x), np.asarray(r_p))
 
 
 @pytest.mark.parametrize("mode", ["sorted", "sorted@32", "sorted_lazy",
@@ -146,8 +105,8 @@ def test_sorted_sweep_small_capacity(blobby):
     _, _, xb, yb, ct, st = rays_from_poses(poses[:6], 540, FOV, 0)
     r2 = r_s(smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
              smap.tile_origin, smap.ns, smap.kv_sec, poses[:6, 0],
-             poses[:6, 1], xb, yb, ct, st, MAXR, 64, 100000, False, False,
-             8, "sorted")[:, :540]
+             poses[:6, 1], xb, yb, ct, st, MAXR, 64, 100000,
+             "sorted")[:, :540]
     from pyracecarsimulator_tpu.ops.common import apply_extent_mask
     r2 = apply_extent_mask(r2, poses[:6, 0], poses[:6, 1], smap.extent,
                            MAXR)
@@ -159,9 +118,9 @@ def test_block_size_invariance(blobby):
     results must not depend on bb."""
     occ, res, org, smap, segs, poses = blobby
     r64 = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=64, use_pallas=False)
+                             max_range=MAXR, bb=64)
     r128 = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                              max_range=MAXR, bb=128, use_pallas=False)
+                              max_range=MAXR, bb=128)
     assert np.array_equal(np.asarray(r64), np.asarray(r128))
 
 
@@ -174,7 +133,7 @@ def test_grad_matches_full_set_vjp(blobby):
         return jnp.sum(raycast_sectors(
             smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
             smap.tile_origin, smap.ns, smap.kv_sec, poses[:, 0],
-            poses[:, 1], xb_, yb_, ct_, st_, MAXR, 64, 64, False, False))
+            poses[:, 1], xb_, yb_, ct_, st_, MAXR, 64, 64))
 
     def loss_all(xb_, yb_, ct_, st_):
         return jnp.sum(raycast_all_diff(sm.params, xb_, yb_, ct_, st_,
@@ -191,7 +150,7 @@ def test_block_half_guard(blobby):
     with pytest.raises(ValueError, match="block_half"):
         # 60 beams over the full fov: blocks span far more than 0.62 rad
         scan_poses_sectors(smap, poses, num_beams=60, fov=FOV,
-                           max_range=MAXR, bb=64, use_pallas=False)
+                           max_range=MAXR, bb=64)
 
 
 def test_meta_is_leaf_table_swap_no_retrace(blobby):
@@ -219,7 +178,7 @@ def test_meta_is_leaf_table_swap_no_retrace(blobby):
                            for v in (poses[:, 0:1], poses[:, 1:2],
                                      jnp.cos(poses[:, 2:3]),
                                      jnp.sin(poses[:, 2:3]))],
-            MAXR, 128, 64, False, False)
+            MAXR, 128, 64)
 
     scan(smap.table, smap.meta, poses)
     scan(smap2.table, smap2.meta, poses)
@@ -257,8 +216,8 @@ def test_bundled_maps_parity_1080():
         ).reshape(8, 1080)
         np.testing.assert_allclose(np.asarray(r), ro, atol=1e-4,
                                    err_msg=f"{name} sector parity")
-        # the table must stay HBM-friendly (berlin: ~130 MB at round-3
-        # capacities; a regression past 0.5 GB would break 4-map serving)
+        # the table must stay small next to device memory (berlin:
+        # ~130 MB; a regression past 0.5 GB would break 4-map serving)
         assert np.asarray(smap.table).nbytes < 5e8
 
 
@@ -352,7 +311,7 @@ def test_incremental_obstacle_matches_full_rebuild(small_track):
 
 def test_facade_map_grad_route(small_track):
     """make_scan_fn(map_grad=True): the facade-reachable hybrid
-    ∂range/∂map path (VERDICT r3 missing #2). Values must be bit-identical
+    ∂range/∂map path. Values must be bit-identical
     to the plain sector scan; the ``edf`` gradient must agree with the
     FD-validated implicit march's map cotangent (both differentiate the
     same tau surface; agreement rate bound as in test_raymarch_diff)."""
@@ -442,52 +401,73 @@ def test_multi_map_stack_matches_per_map(blobby, small_track):
     gb = np.asarray(jax.grad(loss_b)(poses_b))
     np.testing.assert_allclose(gm[12:], gb, rtol=1e-5, atol=1e-5)
 
-@pytest.mark.parametrize("mode", ["sorted_pl@32", "sorted_pl@64"])
-def test_sorted_pl_kernel_bitexact_vs_dense(blobby, mode):
-    """The ragged sorted-tile Pallas kernel (interpret mode on CPU) must
-    be BIT-exact vs the dense sweep at the bb=128 flagship block width
-    (the kernel's lane layout): same slots swept, same formulas."""
-    occ, res, org, smap, segs, poses = blobby
-    r_d = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=128, mode="dense")
-    r_s = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=128, mode=mode,
-                             interpret=True)
-    assert np.array_equal(np.asarray(r_d), np.asarray(r_s)), mode
-
-
-def test_sorted_pl_grad_matches_dense(blobby):
-    occ, res, org, smap, segs, poses = blobby
-
-    def loss(mode, p):
-        return jnp.sum(scan_poses_sectors(
-            smap, p, num_beams=540, fov=FOV, max_range=MAXR, bb=128,
-            mode=mode, interpret=True) ** 2)
-
-    g_d = jax.grad(lambda p: loss("dense", p))(poses)
-    g_s = jax.grad(lambda p: loss("sorted_pl@64", p))(poses)
-    np.testing.assert_array_equal(np.asarray(g_d), np.asarray(g_s))
-
-
-def test_auto_mode_resolution():
-    """"auto" resolves to dense off-TPU (interpret kernels are orders
-    slower) and to the sorted-tile kernel only for large capacities at
-    the flagship block width on a TPU backend."""
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("table", ["blobby", "blobby_bigk"])
+def test_auto_is_dense_at_every_capacity(request, table, multi):
+    """"auto" is the dense sweep whatever the table's capacity: on the
+    card dense beat the sorted sweeps at every capacity measured
+    (PERF.md). The rule reads no backend name, so the CPU resolves
+    exactly as the GPU; here, on a small (K=72) and a larger (K=144)
+    table, single- and multi-map."""
+    from pyracecarsimulator_tpu.maps.sectors import stack_sector_maps
     from pyracecarsimulator_tpu.ops.raycast_sectors import (
-        resolve_sector_mode, _AUTO_MIN_K)
-    # this test runs CPU-pinned: auto must resolve to dense regardless
-    assert resolve_sector_mode("auto", 496, 128)[0] == "dense"
-    # explicit modes pass through untouched
-    assert resolve_sector_mode("sorted_pt@64", 496, 128) == \
-        ("sorted_pt@64", None)
-    assert resolve_sector_mode("dense", 32, 128) == ("dense", None)
+        resolve_sector_mode, scan_poses_sectors_multi)
+    assert resolve_sector_mode("auto") == "dense"
+    occ, res, org, smap, segs, poses = request.getfixturevalue(table)
+    kw = dict(num_beams=540, fov=FOV, max_range=MAXR, bb=128)
+    if multi:
+        stack = stack_sector_maps([smap])
+        mids = jnp.zeros(poses.shape[0], jnp.int32)
+        run = lambda m: scan_poses_sectors_multi(stack, mids, poses,
+                                                 mode=m, **kw)
+    else:
+        run = lambda m: scan_poses_sectors(smap, poses, mode=m, **kw)
+    np.testing.assert_array_equal(np.asarray(run("auto")),
+                                  np.asarray(run("dense")))
 
 
-def test_multi_map_sorted_pl_bitexact(blobby, small_track):
-    """The sorted-tile kernel through the PRECOMPUTED-ids multi-track
+@pytest.mark.parametrize("mode", ["dense", "sorted_pt@64", "sorted_ptt",
+                                  "sorted_lazy@32"])
+def test_explicit_modes_pass_through(mode):
+    from pyracecarsimulator_tpu.ops.raycast_sectors import (
+        resolve_sector_mode)
+    assert resolve_sector_mode(mode) == mode
+
+
+@pytest.mark.parametrize("mode", ["sorted_pl", "sorted_pl@64", "sorted_plf",
+                                  "sorted_plfm@128", "sorted_plfr",
+                                  "sorted_plfmr@16"])
+def test_removed_modes_raise(blobby, mode):
+    """Mode strings of the removed Pallas kernels fail loudly and name
+    their replacement, on both the single-map and the multi-map path."""
+    from pyracecarsimulator_tpu.maps.sectors import stack_sector_maps
+    from pyracecarsimulator_tpu.ops.raycast_sectors import (
+        scan_poses_sectors_multi)
+    occ, res, org, smap, segs, poses = blobby
+    with pytest.raises(ValueError, match="sorted_pt"):
+        scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
+                           max_range=MAXR, bb=128, mode=mode)
+    with pytest.raises(ValueError, match="sorted_pt"):
+        scan_poses_sectors_multi(stack_sector_maps([smap]),
+                                 jnp.zeros(poses.shape[0], jnp.int32),
+                                 poses, num_beams=540, fov=FOV,
+                                 max_range=MAXR, bb=128, mode=mode)
+
+
+def test_unknown_mode_raises(blobby):
+    occ, res, org, smap, segs, poses = blobby
+    with pytest.raises(ValueError, match="unknown sector sweep mode"):
+        scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
+                           max_range=MAXR, bb=128, mode="sorted_fast")
+
+
+@pytest.mark.parametrize("mode", ["sorted_pt@32", "sorted_pt@64",
+                                  "sorted_ptt@32", "sorted@32"])
+def test_multi_map_sorted_bitexact(blobby, small_track, mode):
+    """The length-sorted sweeps through the PRECOMPUTED-ids multi-track
     path: sorting/tiling across a cross-map agent batch must reproduce
     the dense multi sweep bit-exactly (ids are rows into the stacked
-    table, so the kernel needs no multi-awareness)."""
+    table, so the sweep needs no multi-awareness)."""
     from pyracecarsimulator_tpu.maps.sectors import stack_sector_maps
     from pyracecarsimulator_tpu.ops.raycast_sectors import (
         scan_poses_sectors_multi)
@@ -512,16 +492,14 @@ def test_multi_map_sorted_pl_bitexact(blobby, small_track):
     kw = dict(num_beams=540, fov=FOV, max_range=MAXR, bb=128)
     r_d = scan_poses_sectors_multi(stack, map_ids, poses, mode="dense",
                                    **kw)
-    r_s = scan_poses_sectors_multi(stack, map_ids, poses,
-                                   mode="sorted_pl@64", interpret=True,
-                                   **kw)
+    r_s = scan_poses_sectors_multi(stack, map_ids, poses, mode=mode, **kw)
     np.testing.assert_array_equal(np.asarray(r_d), np.asarray(r_s))
 
 
 def test_agent_chunked_matches_unchunked(blobby):
     """agent_chunk splits the batch into lax.map'd chunks; values and
-    gradients must be bit-identical to the single-shot sweep (VERDICT r4
-    task 3: automatic large-batch handling)."""
+    gradients must be bit-identical to the single-shot sweep (automatic
+    large-batch handling)."""
     occ, res, org, smap, segs, poses = blobby
     r0 = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
                             max_range=MAXR, bb=64, agent_chunk=0)
@@ -541,117 +519,92 @@ def test_agent_chunked_matches_unchunked(blobby):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_auto_agent_chunk_thresholds():
-    from pyracecarsimulator_tpu.ops.raycast_sectors import (
-        _auto_agent_chunk)
+def test_auto_agent_chunk_thresholds(monkeypatch):
+    from pyracecarsimulator_tpu.ops import raycast_sectors as rs
+    # no device memory limit reported (the CPU): the fixed fallback
+    monkeypatch.setattr(rs, "_chunk_bytes_budget",
+                        lambda: rs._CHUNK_BYTES_FALLBACK)
     # flagship 4096-agent configs stay un-chunked on both bundled maps
-    assert _auto_agent_chunk(4096, 9, 496, "sorted_pl@128") == 0
-    assert _auto_agent_chunk(4096, 9, 32, "dense") == 0
-    # 32k berlin-class chunks under the sorted kernel's 3x working set
-    c = _auto_agent_chunk(32768, 9, 496, "sorted_pl@128")
+    assert rs._auto_agent_chunk(4096, 9, 496) == 0
+    assert rs._auto_agent_chunk(4096, 9, 32) == 0
+    # 32k berlin-class splits into balanced, 128-aligned chunks
+    c = rs._auto_agent_chunk(32768, 9, 496)
     assert 0 < c <= 16384 and c % 128 == 0
-    # fused-kernel batches chunk at the SMEM ids cap, balanced across
-    # chunks (128-aligned)
-    cf = _auto_agent_chunk(33000, 9, 496, "sorted_plf@128")
-    assert 0 < cf <= 8192 and cf % 128 == 0
-    nc = -(-33000 // cf)
-    assert nc * cf - 33000 < 0.05 * 33000   # <5% padding
+    cb = rs._auto_agent_chunk(33000, 9, 496)
+    assert 0 < cb and cb % 128 == 0
+    nc = -(-33000 // cb)
+    assert nc * cb - 33000 < 0.05 * 33000   # <5% padding
     # levine-class K=32 never chunks below 65k
-    assert _auto_agent_chunk(65536, 9, 32, "dense") == 0
+    assert rs._auto_agent_chunk(65536, 9, 32) == 0
+
+
+@pytest.mark.parametrize("limit,chunked", [(None, True),
+                                           (60e9, False), (8e9, True)])
+def test_chunk_budget_follows_device_memory(monkeypatch, limit, chunked):
+    """The budget is an eighth of the device's memory limit where the
+    device reports one (H100: 65k berlin agents run in one shot)."""
+    from pyracecarsimulator_tpu.ops import raycast_sectors as rs
+
+    class Dev:
+        def memory_stats(self):
+            return None if limit is None else {"bytes_limit": limit}
+    monkeypatch.setattr(rs.jax, "devices", lambda: [Dev()])
+    assert (rs._auto_agent_chunk(65536, 9, 496) > 0) == chunked
 
 
 @pytest.fixture(scope="module")
 def blobby_bigk(blobby):
-    """Same geometry at coarser tiles/sectors: capacity K=144 >= 128, so
-    the map carries the fused-kernel table_ck layout (round 5)."""
+    """Same geometry at coarser tiles/sectors: a larger capacity (K=144),
+    where the length-sorted sweeps have real chunks to skip."""
     occ, res, org, _, segs, poses = blobby
     smap = build_sector_map(occ, res, org, max_range=MAXR, tile_size=4.0,
                             ns=4, block_half=0.62)
-    assert smap.table_ck is not None
     return occ, res, org, smap, segs, poses
 
 
-def test_fused_kernel_bitexact_vs_dense(blobby_bigk):
-    """Fused-gather sorted-tile kernel (in-kernel gather + transpose,
-    VERDICT r4 task 2): bit-identical ranges and gradients vs the dense
-    sweep, both transpose engines, interpret mode."""
+@pytest.mark.parametrize("mode", ["sorted_pt@64", "sorted_ptt@32"])
+def test_bigk_sorted_matches_dense(blobby_bigk, mode):
+    """On a larger-capacity table the length-sorted sweeps skip real
+    chunks; ranges and gradients are identical to the dense sweep."""
     occ, res, org, smap, segs, poses = blobby_bigk
-    r_d = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                             max_range=MAXR, bb=128, mode="dense")
-    for mode in ("sorted_plf@16", "sorted_plfm@16", "sorted_plfr@16",
-                 "sorted_plfmr@16", "sorted_pl@16"):
-        r_f = scan_poses_sectors(smap, poses, num_beams=540, fov=FOV,
-                                 max_range=MAXR, bb=128, mode=mode,
-                                 interpret=True)
-        np.testing.assert_array_equal(np.asarray(r_d), np.asarray(r_f),
-                                      err_msg=mode)
+    assert smap.table.shape[2] >= 128
+    kw = dict(num_beams=540, fov=FOV, max_range=MAXR, bb=128)
+    r_d = scan_poses_sectors(smap, poses, mode="dense", **kw)
+    r_s = scan_poses_sectors(smap, poses, mode=mode, **kw)
+    np.testing.assert_array_equal(np.asarray(r_d), np.asarray(r_s))
 
-    def g(mode, interp):
+    def g(m):
         f = lambda p: jnp.sum(jnp.minimum(scan_poses_sectors(
-            smap, p, num_beams=540, fov=FOV, max_range=MAXR, bb=128,
-            mode=mode, interpret=interp), MAXR - 0.1) ** 2)
+            smap, p, mode=m, **kw), MAXR - 0.1) ** 2)
         return jax.grad(f)(poses)
-    np.testing.assert_allclose(np.asarray(g("dense", False)),
-                               np.asarray(g("sorted_plf@16", True)),
+    np.testing.assert_allclose(np.asarray(g("dense")), np.asarray(g(mode)),
                                rtol=1e-6, atol=1e-6)
 
 
-def test_fused_kernel_multitrack_route(blobby_bigk, blobby):
-    """The stacked multi-map sweep routes through the fused kernel too
-    (StackedSectorMap carries table_ck)."""
+@pytest.mark.parametrize("multi", [False, True])
+def test_sorted_pt_chunked_matches_dense(blobby_bigk, multi):
+    """sorted_pt under agent chunking (pad tail included) reproduces the
+    un-chunked dense sweep, single-map and multi-map."""
     from pyracecarsimulator_tpu.maps.sectors import stack_sector_maps
     from pyracecarsimulator_tpu.ops.raycast_sectors import (
         scan_poses_sectors_multi)
     occ, res, org, smap, segs, poses = blobby_bigk
-    stack = stack_sector_maps([smap, smap])
-    assert stack.table_ck is not None
-    mids = jnp.asarray(np.arange(poses.shape[0]) % 2, jnp.int32)
-    r_d = scan_poses_sectors_multi(stack, mids, poses, num_beams=540,
-                                   fov=FOV, max_range=MAXR, bb=128,
-                                   mode="dense")
-    r_f = scan_poses_sectors_multi(stack, mids, poses, num_beams=540,
-                                   fov=FOV, max_range=MAXR, bb=128,
-                                   mode="sorted_plf@16", interpret=True)
-    np.testing.assert_array_equal(np.asarray(r_d), np.asarray(r_f))
-
-
-def test_table_ck_roundtrip(blobby_bigk):
-    """table_ck is a pure re-layout of the sentinel-padded table."""
-    from pyracecarsimulator_tpu.maps.sectors import build_table_ck
-    occ, res, org, smap, segs, poses = blobby_bigk
-    tck = np.asarray(build_table_ck(smap.table))
-    l, ng, three, cg = tck.shape
-    k = smap.table.shape[2]
-    flat = tck.transpose(0, 2, 1, 3).reshape(l, 3, ng * cg)
-    np.testing.assert_array_equal(flat[:, :, :k],
-                                  np.asarray(smap.table)[:, :3, :])
-
-
-def test_add_segments_updates_table_ck_incrementally(blobby):
-    """add_segments keeps the fused-kernel layout consistent via the
-    same O(n_new) scatter as the table (no full re-layout): the
-    incrementally updated table_ck must equal a fresh build from the
-    updated table (code-review r5)."""
-    from pyracecarsimulator_tpu.maps.sectors import (add_segments,
-                                                     build_table_ck)
-    occ, res, org, _, segs, poses = blobby
-    smap = build_sector_map(occ, res, org, max_range=MAXR, tile_size=4.0,
-                            ns=4, block_half=0.62, headroom=8)
-    assert smap.table_ck is not None
-    box = np.asarray([
-        (0.30, -0.20, 0.20, 1.0),    # two V + two H segments
-        (0.70, -0.20, 0.20, 1.0),
-        (-0.20, 0.30, 0.70, 0.0),
-        (0.20, 0.30, 0.70, 0.0)], np.float64)
-    sm2 = add_segments(smap, box)
-    np.testing.assert_array_equal(
-        np.asarray(sm2.table_ck),
-        np.asarray(build_table_ck(sm2.table)))
+    kw = dict(num_beams=540, fov=FOV, max_range=MAXR, bb=128)
+    if multi:
+        stack = stack_sector_maps([smap, smap])
+        mids = jnp.asarray(np.arange(poses.shape[0]) % 2, jnp.int32)
+        run = lambda **k: scan_poses_sectors_multi(stack, mids, poses,
+                                                   **kw, **k)
+    else:
+        run = lambda **k: scan_poses_sectors(smap, poses, **kw, **k)
+    r_d = run(mode="dense", agent_chunk=0)
+    r_c = run(mode="sorted_pt@64", agent_chunk=7)
+    np.testing.assert_array_equal(np.asarray(r_d), np.asarray(r_c))
 
 
 def test_multi_agent_chunked_matches_unchunked(blobby_bigk):
-    """Multi-track chunked execution (SMEM-budget path for 32k+ fused
-    batches; code-review r5) is value-identical, pad tail included."""
+    """Multi-track chunked execution (the large-batch path) is
+    value-identical, pad tail included."""
     from pyracecarsimulator_tpu.maps.sectors import stack_sector_maps
     from pyracecarsimulator_tpu.ops.raycast_sectors import (
         scan_poses_sectors_multi)
@@ -662,35 +615,3 @@ def test_multi_agent_chunked_matches_unchunked(blobby_bigk):
     r0 = scan_poses_sectors_multi(stack, mids, poses, agent_chunk=0, **kw)
     r1 = scan_poses_sectors_multi(stack, mids, poses, agent_chunk=7, **kw)
     np.testing.assert_array_equal(np.asarray(r0), np.asarray(r1))
-
-
-def test_resolve_auto_tpu_branches(monkeypatch):
-    """Pin the TPU-side auto resolution ladder (the CPU suite can't hit
-    it otherwise): fused kernel at K>=112 with a table_ck; round-4
-    kernel fallback without one; dense for single-orientation tables
-    and for K below the crossover (code-review r5)."""
-    from pyracecarsimulator_tpu.ops import raycast_sectors as rs
-    monkeypatch.setattr(rs.jax, "default_backend", lambda: "tpu")
-    assert rs.resolve_sector_mode("auto", 496, 128, False, 248)[0] \
-        == "sorted_plf@128"
-    assert rs.resolve_sector_mode("auto", 496, 128, False, 248,
-                                  has_ck=False)[0] == "sorted_pl@128"
-    assert rs.resolve_sector_mode("auto", 496, 128, False, 0)[0] \
-        == "dense"                       # single-orientation
-    assert rs.resolve_sector_mode("auto", 96, 128, False, 48)[0] \
-        == "dense"                       # below the measured crossover
-    assert rs.resolve_sector_mode("auto", 496, 64, False, 248)[0] \
-        == "dense"                       # non-128 block width
-    assert rs.resolve_sector_mode("auto", 496, 128, True, 248)[0] \
-        == "dense"                       # interpret-mode debug run
-
-
-def test_auto_chunk_scales_with_beam_blocks():
-    """The fused-kernel chunk cap respects the ids SMEM budget for wide
-    beam configs (code-review r5): chunk * nblk stays within the
-    measured-good 73728-row point."""
-    from pyracecarsimulator_tpu.ops.raycast_sectors import (
-        _auto_agent_chunk)
-    for nblk in (9, 18, 32):
-        c = _auto_agent_chunk(100000, nblk, 496, "sorted_plf@128")
-        assert c * nblk <= 73728 and c % 128 == 0

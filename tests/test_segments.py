@@ -87,6 +87,29 @@ def test_tiled_equals_full(small_track, rng):
     np.testing.assert_array_equal(a, b)
 
 
+def test_segment_map_is_split_layout(small_track, rng):
+    """build_segment_map always emits the split V|H layout (kv > 0), full
+    set and tiles: the mixed layout compiled for minutes on the GPU. Its
+    ranges equal the mixed layout's (same segments, exact min)."""
+    from pyracecarsimulator_tpu.ops.common import rays_from_poses
+    occ = np.asarray(small_track.occupancy)
+    org = (small_track.origin_x, small_track.origin_y)
+    sm = build_segment_map(occ, small_track.resolution, org,
+                           max_range=2.0, tile_size=1.0)
+    assert sm.kv > 0 and sm.params.shape[1] > sm.kv
+    assert sm.tiles is None or sm.kv_tile > 0
+    x, y = _sample_free(small_track, rng, 8)
+    poses = jnp.asarray(np.stack([x, y, rng.uniform(-3, 3, 8)], -1),
+                        jnp.float32)
+    _, _, xb, yb, ct, st = rays_from_poses(poses, 64, 4.71238898, 0)
+    mixed = jnp.asarray(pad_segments(extract_segments(
+        occ, small_track.resolution, org)).T, jnp.float32)
+    np.testing.assert_array_equal(
+        np.asarray(raycast_all(sm.params, xb, yb, ct, st, 2.0, 1024,
+                               sm.kv)),
+        np.asarray(raycast_all(mixed, xb, yb, ct, st, 2.0, 1024, 0)))
+
+
 def test_march_semantics_bound(small_track, rng):
     """DT march T vs exact geometry t*: T >= t* - tiny, and overwhelmingly
     within ~2 cells; corner-grazing rays may tunnel (documented artifact of

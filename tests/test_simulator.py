@@ -7,7 +7,7 @@ import pytest
 
 from pyracecarsimulator_tpu.config import CarParams, ScanParams, SimParams
 from pyracecarsimulator_tpu.simulator import (
-    RacecarSimulator, build_sim, make_step_fn)
+    RacecarSimulator, build_sim, make_scan_fn, make_step_fn)
 from pyracecarsimulator_tpu.state import zero_state, state_from_pose
 from pyracecarsimulator_tpu.parallel import (
     rollout, make_constant_policy, make_gap_follower_policy)
@@ -144,29 +144,23 @@ def test_backends_agree(sim_bundle):
     assert np.quantile(d, 0.95) < 2 * sim_bundle.track.resolution
 
 
-def test_pallas_backend_matches_segments(sim_bundle):
-    """The segments_pallas facade backend is bit-identical to segments
-    (same geometry, same extent mask; kernel in interpret mode on CPU)."""
-    x, y = _open_pose(sim_bundle)
-    s = state_from_pose(jnp.array([x]), y, 0.7)
-    outs = {}
-    for backend in ("segments", "segments_pallas"):
-        step = make_step_fn(sim_bundle, backend=backend, with_noise=False)
-        out = step(s, (jnp.ones(1), jnp.zeros(1)), None)
-        outs[backend] = (np.asarray(out.ranges), np.asarray(out.state.x),
-                         np.asarray(out.collision))
-    for a, b in zip(outs["segments"], outs["segments_pallas"]):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_pallas_backend_rejects_simplified_geometry(sim_bundle):
-    """segments_pallas needs an exact SegmentMap; a bundle built with
-    simplified GeneralSegmentMap geometry must fail loudly, not with an
-    AttributeError deep in the kernel (ADVICE round 1)."""
-    bundle = build_sim(sim_bundle.track, scan=SCAN64,
-                       backend="segments_simplified")
-    with pytest.raises(ValueError, match="simplified"):
-        make_step_fn(bundle, backend="segments_pallas", with_noise=False)
+@pytest.mark.parametrize("entry", ["build_sim", "make_scan_fn",
+                                   "make_step_fn", "facade"])
+def test_removed_pallas_backend_raises(sim_bundle, entry):
+    """backend="segments_pallas" ran a removed Pallas kernel: every entry
+    point refuses it and names the replacement."""
+    with pytest.raises(ValueError, match="'sectors'"):
+        if entry == "build_sim":
+            build_sim(sim_bundle.track, scan=SCAN64,
+                      backend="segments_pallas")
+        elif entry == "make_scan_fn":
+            make_scan_fn(sim_bundle, backend="segments_pallas")
+        elif entry == "make_step_fn":
+            make_step_fn(sim_bundle, backend="segments_pallas",
+                         with_noise=False)
+        else:
+            RacecarSimulator(sim_bundle.track, scan_params=SCAN64,
+                             backend="segments_pallas")
 
 
 def test_obstacle_swap_avoids_recompile(sim_bundle):

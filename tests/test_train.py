@@ -55,11 +55,3 @@ def test_bptt_train_step_learns():
     assert np.isfinite(losses).all()
     assert float(jnp.sum(jnp.abs(params["w"]))) > 0   # gradients flowed
     assert losses[-1] < losses[0]                      # learned something
-
-
-def test_bptt_train_rejects_compiler_opts_step():
-    def fake(s, a, k=None):
-        pass
-    fake.has_compiler_opts = True
-    with pytest.raises(ValueError):
-        make_bptt_train_fn(fake, lambda *a: None, lambda *a: 0.0, 2, 64)

@@ -50,9 +50,34 @@ def test_pod_mesh_layout():
         make_pod_mesh(beams_axis=3)   # doesn't divide 8
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(coordinator_address="localhost:12355", num_processes=2,
+         process_id=0),
+    dict(num_processes=2),
+])
+def test_multihost_initialize_raises_on_explicit_args(monkeypatch, kwargs):
+    """Explicit cluster arguments that cannot be honoured raise (here:
+    the backend is already up, so jax.distributed refuses at once)."""
+    from pyracecarsimulator_tpu.parallel import multihost
+    jax.devices()
+    monkeypatch.setattr(multihost, "_initialized", False)
+    with pytest.raises(RuntimeError):
+        multihost.initialize(**kwargs)
+    assert multihost._initialized is False
+
+
+def test_multihost_initialize_no_args_stays_single_process(monkeypatch):
+    from pyracecarsimulator_tpu.parallel import multihost
+    jax.devices()
+    monkeypatch.setattr(multihost, "_initialized", False)
+    multihost.initialize()               # no cluster here: quiet no-op
+    assert multihost._initialized is False
+    assert jax.process_count() == 1
+
+
 def test_timed_loop_runs():
     x = jnp.ones((128, 128))
-    sec = timed_loop(lambda a: jnp.sum(a * 2.0), x, reps=5, overhead_s=0.0)
+    sec = timed_loop(lambda a: jnp.sum(a * 2.0), x, reps=5)
     assert sec > 0
 
 
